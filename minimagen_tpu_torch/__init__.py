@@ -1,0 +1,20 @@
+"""minimagen_tpu_torch — the PyTorch/CUDA port of ``minimagen_tpu``.
+
+A second package beside the JAX one, for one NVIDIA H100. It mirrors the JAX
+package's layout (``ops/``, ``models/``) so each counterpart is easy to find,
+and it imports neither ``jax`` nor anything of ``minimagen_tpu``: what it needs
+from there is copied.
+
+What is ported so far is the sampling path through the committed lite
+cascade: the tiny T5 encoder, the 64px base and 256px super-resolution
+U-Nets, pair-batched classifier-free guidance with dynamic thresholding, and
+the DDPM/DDIM samplers with truncated super-resolution. The Pallas kernels on
+that path (multi-query and multi-head attention forward, fused GroupNorm
+forward) are CUDA C++ kernels under ``csrc/``, built with ``nvcc`` at first use
+and bound with ``ctypes`` (``ops/kernels.py``).
+
+Activations are NHWC at every public function, as in the JAX package.
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+"""
+
+__version__ = "0.1.0"

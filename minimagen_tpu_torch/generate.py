@@ -1,0 +1,61 @@
+"""Loading the committed lite cascade (counterpart of the JAX package's
+``generate.py`` loaders and ``__graft_entry__._lite_imagen``).
+
+``assets/lite_ckpt`` holds the bf16 EMA weights of a 64px base U-Net and a
+256px super-resolution U-Net trained with the committed tiny T5 encoder
+(``assets/t5_tiny``); ``meta.json`` names the model, the encoder and the
+caption length it was trained with.
+"""
+from __future__ import annotations
+
+import json
+import os
+
+import torch
+
+from .checkpoint import load_unet_checkpoint
+from .models.imagen import Imagen
+from .models.t5 import REPO_ROOT, TextEncoder
+from .models.unet import UnetConfig
+
+LITE_CKPT_DIR = os.path.join(REPO_ROOT, "assets", "lite_ckpt")
+
+
+def lite_unet_configs():
+    """The lite cascade's (base, super-res) U-Net configs."""
+    base = UnetConfig(
+        dim=64, dim_mults=(1, 2, 3, 4), num_resnet_blocks=2,
+        layer_attns=(False, True, True, True), layer_cross_attns=(False, True, True, True),
+        memory_efficient=False, attend_at_middle=True,
+    )
+    sr = UnetConfig(
+        dim=32, dim_mults=(1, 2, 4, 8), num_resnet_blocks=(2, 2, 3, 3),
+        layer_attns=(False, False, False, True), layer_cross_attns=(False, False, False, True),
+        memory_efficient=True,
+    )
+    return base, sr
+
+
+def lite_imagen(text_encoder_name: str = "t5_tiny", dtype=torch.bfloat16,
+                device="cuda") -> Imagen:
+    """The lite 64->256 cascade with randomly initialised weights."""
+    return Imagen(unets=list(lite_unet_configs()), image_sizes=(64, 256), timesteps=1000,
+                  cond_drop_prob=0.1, text_encoder_name=text_encoder_name, dtype=dtype,
+                  device=device)
+
+
+def load_lite(device="cuda", ckpt_dir: str = LITE_CKPT_DIR,
+              dtype: torch.dtype = torch.bfloat16) -> Imagen:
+    """Build the cascade that ``meta.json`` describes and load both U-Nets'
+    weights and its T5 encoder from the committed files."""
+    with open(os.path.join(ckpt_dir, "meta.json")) as f:
+        meta = json.load(f)
+    config = meta["config"]
+    if config["model"] != "lite":
+        raise ValueError(f"{ckpt_dir} holds model {config['model']!r}, not 'lite'")
+    imagen = lite_imagen(config["encoder"], dtype=dtype, device=device)
+    for i, unet in enumerate(imagen.unets):
+        load_unet_checkpoint(os.path.join(ckpt_dir, f"unet_{i}_ema_bf16.ckpt"), unet)
+    imagen.text_encoder = TextEncoder(config["encoder"], device)
+    imagen.text_max_length = config["max_length"]
+    return imagen
