@@ -21,6 +21,28 @@ Phases, one line each with elapsed seconds; any failure exits non-zero:
 8. a measurement, not a check: the host time of 5 guided DDIM steps per
    stage, and a torch.profiler trace of them for the device's busy time and
    its largest kernels.
+9. record the training step's kernel shapes: one step of both stages at
+   batch 16 with hooks on the modules that call the kernels.
+10. backward kernels against their plain versions at those shapes, in
+   bfloat16 and float32 (the biased multi-head forward and backward with a
+   bias from a mask dropping about a quarter of the keys), with the same
+   limits and times as phase 3 and, for attention, autograd through
+   ``F.scaled_dot_product_attention`` as the yardstick.
+11. reference train step: the committed weights as float32 master
+   parameters, one step at batch 2 with injected draws, on the card
+   (kernels) and on the CPU (plain versions), TF32 off: losses within 1e-4
+   relative, each U-Net's gradient within 1e-3 relative L2, the updated
+   parameters and EMA within 1e-4; and on each device the EMA within 2
+   float32 ulps of ``ema0 * d + p * (1 - d)`` taken in float64 from that
+   device's own updated parameters (a wrong decay or a skipped update is
+   tens of ulps off, where card against CPU the EMA moves only ~1e-6).
+12. learn, with the launch counts reset just before it: ``train_lite`` from
+   a fresh init (seed 0), float32 master parameters, bf16 compute, 400
+   steps; the mean loss of each stage over steps 201-400 must stay within
+   1.5x the committed run's (base 0.25, SR 1.10) and below its own mean
+   over steps 1-200, every loss finite, every backward kernel launched.
+13. a measurement, not a check: host ms per training step and a
+   torch.profiler trace of 5 steps.
 
 Then it prints the kernels' JSON line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. It exits non-zero without a result when no CUDA card is present or the
@@ -38,6 +60,20 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 COLOR_LIMIT = 0.06
 REFERENCE_LIMIT = 1e-3  # relative L2, float32 on the card vs float32 on the CPU
+# reference train step, card vs CPU in float32: relative loss, relative L2
+# of each U-Net's gradient, relative L2 of the updated parameters and EMA;
+# and the EMA against its own definition, in float32 ulps (one rounding of
+# ema0 * d, one of the sum: 1.5 ulps at most)
+TRAIN_LOSS_LIMIT, TRAIN_GRAD_LIMIT, TRAIN_PARAM_LIMIT = 1e-4, 1e-3, 1e-4
+EMA_ULP_LIMIT = 2.0
+EMA_DECAY = 0.9995
+LEARN_STEPS = 400
+TRAIN_BATCH = 16
+# the committed lite run's mean losses (base, SR) over steps 1-200 and
+# 201-400 (examples/lite_r5/history.json), and the learning limits, 1.5x the
+# latter
+COMMITTED_LOSSES = ((0.6443, 1.1758), (0.1639, 0.7355))
+LEARN_LIMITS = (0.25, 1.10)
 SAMPLE_STEPS = 50
 COND_SCALE = 3.0
 SEED = 0
@@ -55,14 +91,65 @@ KERNEL_INFO = {
     "group_norm_forward": ("minimagen_tpu_torch/csrc/group_norm.cu",
                            "minimagen_tpu/ops/group_norm.py:89"),
 }
+BACKWARD_INFO = {
+    "mqa_backward": ("minimagen_tpu_torch/csrc/flash_attention.cu",
+                     "minimagen_tpu/ops/flash_attention.py:174"),
+    "mha_backward": ("minimagen_tpu_torch/csrc/flash_attention.cu",
+                     "minimagen_tpu/ops/flash_attention.py:394"),
+    "group_norm_backward": ("minimagen_tpu_torch/csrc/group_norm.cu",
+                            "minimagen_tpu/ops/group_norm.py:156"),
+}
+REPLACES = {"mha_forward": "minimagen_tpu/ops/flash_attention.py:97 and :349"}
 
 
 class PhaseError(RuntimeError):
     pass
 
 
+LOG_PATH = os.path.join(REPO, "build", "chip_smoke.log")  # the whole log (gitignored)
+_log_file = None
+
+
 def log(msg):
     print(msg, flush=True)
+    if _log_file is not None:
+        _log_file.write(msg + "\n")
+        _log_file.flush()
+
+
+def device_kernel_times(prof):
+    """(name, device us) of every kernel in a torch.profiler trace; user
+    annotations (e.g. Optimizer.step) are ranges over kernels, not kernels."""
+    return [(e.key, e.self_device_time_total) for e in prof.key_averages()
+            if e.self_device_time_total > 0 and e.device_type.name == "CUDA"
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def traced(fn):
+    """Run fn() under a torch.profiler trace of the card; returns the trace's
+    (name, device us) kernel items, or [] when the profiler itself cannot
+    start or stop (no CUPTI on the machine). An error raised by fn() is
+    never caught."""
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        prof.start()
+    except (RuntimeError, AttributeError) as e:
+        log(f"  the profiler did not start ({type(e).__name__}: {e}): device time not measured")
+        fn()
+        return []
+    try:
+        fn()
+    except BaseException:
+        prof.stop()
+        raise
+    try:
+        prof.stop()
+        return device_kernel_times(prof)
+    except (RuntimeError, AttributeError) as e:
+        log(f"  the profiler did not stop ({type(e).__name__}: {e}): device time not measured")
+        return []
 
 
 def device_line():
@@ -74,6 +161,31 @@ def device_line():
             else f"nvidia-smi failed: {out.stderr.strip()}"
     except (OSError, subprocess.TimeoutExpired) as e:
         return f"nvidia-smi unavailable: {e}"
+
+
+def ptxas_summary(build_log):
+    """One line per compiled kernel: its name, template type, registers,
+    spills and shared memory, from ptxas's -v report."""
+    import re
+
+    out, name, spill = [], "?", ""
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            mangled = m.group(1)
+            name = mangled  # the length-prefixed identifier that ends in "kernel"
+            for k in re.finditer(r"(?=(\d+)([A-Za-z_]\w*))", mangled):
+                ident = k.group(2)[:int(k.group(1))]
+                if ident.endswith("kernel") and len(ident) == int(k.group(1)):
+                    name = ident
+                    break
+            kind = "bf16" if "bfloat16" in mangled or "bf16" in mangled else "f32"
+            name, spill = f"{name} [{kind}]", ""
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line:
+            out.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
+    return out
 
 
 def median_ms(fn, reps=10, warmup=2):
@@ -96,44 +208,51 @@ def median_ms(fn, reps=10, warmup=2):
 # --------------------------------------------------------------------------- #
 # the main path's kernel shapes                                               #
 # --------------------------------------------------------------------------- #
-def record_path_shapes(imagen, embeds, masks):
-    """One guided forward per U-Net with hooks on the modules that call the
-    kernels. Returns, per stage, {kernel: Counter(shape)}: the launches of
-    one sampling step, by shape (attention (b, h, n, j); GroupNorm
-    (b, h, w, c, groups, with scale-shift))."""
+def hook_kernel_shapes(imagen):
+    """Forward pre-hooks on the modules of every U-Net that call the
+    forward kernels. Returns (per-stage {kernel: Counter(shape)}, hook
+    handles): attention shapes (b, h, n, j), GroupNorm (b, h, w, c,
+    groups, with scale-shift)."""
     import collections
 
-    import torch
     from minimagen_tpu_torch.models import layers
 
-    per_stage = []
-
-    def on_gn(mod, args, kwargs):
-        shape = (*args[0].shape, mod.groups, kwargs.get("scale_shift") is not None)
-        per_stage[-1]["group_norm_forward"][shape] += 1
-
-    def on_attn(mod, args, kwargs):
-        b, n, _ = args[0].shape
-        per_stage[-1]["mqa_forward"][(b, mod.heads, n, n + 1)] += 1
-
-    def on_cross(mod, args, kwargs):
-        b, n, _ = args[0].shape
-        ctx = kwargs["context"] if "context" in kwargs else args[1]
-        per_stage[-1]["mha_forward"][(b, mod.heads, n, ctx.shape[1] + 1)] += 1
-
+    per_stage = [{k: collections.Counter() for k in KERNEL_INFO} for _ in imagen.unets]
     handles = []
-    for unet in imagen.unets:
+    for unet, counts in zip(imagen.unets, per_stage):
+        def on_gn(mod, args, kwargs, counts=counts):
+            shape = (*args[0].shape, mod.groups, kwargs.get("scale_shift") is not None)
+            counts["group_norm_forward"][shape] += 1
+
+        def on_attn(mod, args, kwargs, counts=counts):
+            b, n, _ = args[0].shape
+            counts["mqa_forward"][(b, mod.heads, n, n + 1)] += 1
+
+        def on_cross(mod, args, kwargs, counts=counts):
+            b, n, _ = args[0].shape
+            ctx = kwargs["context"] if "context" in kwargs else args[1]
+            counts["mha_forward"][(b, mod.heads, n, ctx.shape[1] + 1)] += 1
+
+        table = {layers.GroupNorm: on_gn, layers.Attention: on_attn,
+                 layers.CrossAttention: on_cross}
         for mod in unet.modules():
-            hook = {layers.GroupNorm: on_gn, layers.Attention: on_attn,
-                    layers.CrossAttention: on_cross}.get(type(mod))
-            if hook is not None:
-                handles.append(mod.register_forward_pre_hook(hook, with_kwargs=True))
+            if type(mod) in table:
+                handles.append(mod.register_forward_pre_hook(table[type(mod)], with_kwargs=True))
+    return per_stage, handles
+
+
+def record_path_shapes(imagen, embeds, masks):
+    """One guided forward per U-Net with the shape hooks. Returns, per
+    stage, {kernel: Counter(shape)}: the launches of one sampling step, by
+    shape."""
+    import torch
+
+    per_stage, handles = hook_kernel_shapes(imagen)
     try:
         b = embeds.shape[0]
         dev = embeds.device
         with torch.inference_mode():
             for stage, size in enumerate(imagen.image_sizes):
-                per_stage.append({k: collections.Counter() for k in KERNEL_INFO})
                 kw = dict(text_embeds=embeds, text_mask=masks, lowres_cond_img=None,
                           lowres_noise_times=None, cond_scale=COND_SCALE)
                 if stage > 0:
@@ -184,7 +303,7 @@ def check_attention(kind, shape, dtype, gen):
     v = torch.randn(kv_shape, generator=gen, device=DEVICE).to(dtype)
     kernel, plain = (fa.mqa_flash, fa.mqa_plain) if kind == "mqa" else (fa.mha_flash, fa.mha_plain)
     out, ref = kernel(q, k, v), plain(q, k, v)
-    torch.cuda.synchronize()
+    sync()
     err = float((out.float() - ref.float()).abs().max())
     row = dict(kernel=f"{kind}_forward", shape=list(shape), dtype=str(dtype).split(".")[-1],
                max_abs_err=err, limit=_limit(str(dtype).split(".")[-1], ref.float()))
@@ -214,7 +333,7 @@ def check_group_norm(shape, dtype, gen):
     kw = dict(groups=g, scale_shift=ss, silu=True)
     out = gn.group_norm_silu(x, gamma, beta, **kw)
     ref = gn.group_norm_silu_plain(x, gamma, beta, **kw)
-    torch.cuda.synchronize()
+    sync()
     name = str(dtype).split(".")[-1]
     err = float((out.float() - ref.float()).abs().max())
     row = dict(kernel="group_norm_forward", shape=list(shape), dtype=name, max_abs_err=err,
@@ -234,37 +353,34 @@ def _bound(nbytes, ops, dtype_name):
     return dict(bound_ms=max(byte_ms, op_ms), bound_by="bytes" if byte_ms >= op_ms else "operations")
 
 
-def kernel_checks(per_stage):
+def run_checks(per_stage, checks, seed, extra_mha_j=()):
+    """Each checker of `checks` (mqa, mha, group norm) at every shape of
+    `per_stage`, in bfloat16 then float32; multi-head attention also at
+    the context lengths `extra_mha_j`. Prints one line per shape, raises if
+    any exceeds its limit."""
     import torch
 
-    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
     shapes = {name: set() for name in KERNEL_INFO}
     for counts in per_stage:
         for name, c in counts.items():
             shapes[name].update(c)
-    for b, h, n, _ in list(shapes["mha_forward"]):  # short text contexts (max_length 16) too
-        shapes["mha_forward"].update({(b, h, n, 19), (b, h, n, 21)})
+    for b, h, n, _ in list(shapes["mha_forward"]):
+        shapes["mha_forward"].update((b, h, n, j) for j in extra_mha_j)
+    mqa, mha, gn = checks
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
-        for shape in sorted(shapes["mqa_forward"]):
-            rows.append(check_attention("mqa", shape, dtype, gen))
-        for shape in sorted(shapes["mha_forward"]):
-            rows.append(check_attention("mha", shape, dtype, gen))
-        for shape in sorted(shapes["group_norm_forward"]):
-            rows.append(check_group_norm(shape, dtype, gen))
-    bad = []
-    for r in rows:
-        ok = r["max_abs_err"] <= r["limit"]
-        log(f"  {r['kernel']:<18} {r['dtype']:<8} {str(tuple(r['shape'])):<28} "
-            f"max_abs_err {r['max_abs_err']:.3e} (limit {r['limit']:.3e}) "
-            f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
-            f"library {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} ms "
-            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) {'ok' if ok else 'FAIL'}")
-        if not ok:
-            bad.append(r)
-    if bad:
-        raise PhaseError(f"{len(bad)} kernel checks exceed their limit")
-    return rows
+        rows += [mqa(shape, dtype, gen) for shape in sorted(shapes["mqa_forward"])]
+        rows += [mha(shape, dtype, gen) for shape in sorted(shapes["mha_forward"])]
+        rows += [gn(shape, dtype, gen) for shape in sorted(shapes["group_norm_forward"])]
+    return _report(rows)
+
+
+def kernel_checks(per_stage):
+    """The forward kernels, also at short text contexts (max_length 16)."""
+    return run_checks(per_stage, (lambda *a: check_attention("mqa", *a),
+                                  lambda *a: check_attention("mha", *a), check_group_norm),
+                      SEED, extra_mha_j=(19, 21))
 
 
 # --------------------------------------------------------------------------- #
@@ -355,7 +471,6 @@ def profile_steps(imagen, captions, steps=5):
     times in a torch.profiler trace of the same steps) and the kernels that
     take the most of it."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     embeds, masks = imagen.encode_text(captions)
     b = len(captions)
@@ -377,10 +492,7 @@ def profile_steps(imagen, captions, steps=5):
         t0 = time.perf_counter()
         run()  # host time, without the profiler's own overhead
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            run()
-        kernels_us = [(e.key, e.self_device_time_total) for e in prof.key_averages()
-                      if e.self_device_time_total > 0 and e.device_type.name == "CUDA"]
+        kernels_us = traced(run)
         busy_ms = sum(us for _, us in kernels_us) / 1e3 / steps
         top = sorted(kernels_us, key=lambda kv: -kv[1])[:8]
         row = dict(stage=stage, wall_ms_per_step=wall_ms, device_busy_ms_per_step=busy_ms,
@@ -393,16 +505,325 @@ def profile_steps(imagen, captions, steps=5):
     return out
 
 
+# --------------------------------------------------------------------------- #
+# training                                                                    #
+# --------------------------------------------------------------------------- #
+def record_train_shapes(imagen, state, step_fn, batch):
+    """One training step with the shape hooks. Returns ({kernel:
+    Counter(shape)} per stage for the forward kernels, the launches of that
+    step by kernel name)."""
+    from minimagen_tpu_torch.ops import kernels
+
+    per_stage, handles = hook_kernel_shapes(imagen)
+    kernels.reset_launch_counts()
+    try:
+        step_fn(state, batch, seed=SEED)
+        sync()
+    finally:
+        for h in handles:
+            h.remove()
+    return per_stage, dict(kernels.LAUNCHES)
+
+
+def train_step_shapes():
+    """Kernel shapes and launches of one training step of a fresh lite
+    cascade (float32 parameters, bf16 compute) at batch TRAIN_BATCH."""
+    import torch
+    from minimagen_tpu_torch.generate import lite_imagen
+    from minimagen_tpu_torch.training import make_optimizer, create_train_state, make_train_step
+
+    torch.manual_seed(SEED)
+    imagen = lite_imagen(dtype=torch.bfloat16, param_dtype=torch.float32, device=DEVICE)
+    opt = make_optimizer(1e-4)
+    state = create_train_state(imagen, opt, ema=True)
+    batch = {k: v.to(DEVICE) for k, v in _train_batch(TRAIN_BATCH).items()}
+    return record_train_shapes(imagen, state, make_train_step(imagen, opt, 0.9995), batch)
+
+
+def sync():
+    import torch
+
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def _worst(pairs, dtype_name):
+    """(max_abs_err, limit) of the output whose error is the largest share
+    of its limit, over (got, ref) pairs."""
+    worst = (0.0, 1.0)
+    for got, ref in pairs:
+        err = float((got.float() - ref.float()).abs().max())
+        lim = _limit(dtype_name, ref.float())
+        if err / lim >= worst[0] / worst[1]:
+            worst = (err, lim)
+    return worst
+
+
+def check_attention_backward(kind, shape, dtype, gen):
+    """The backward kernel (and, for multi-head, the biased forward) against
+    the plain versions; multi-head with a bias from a mask dropping ~1/4 of
+    the keys. The yardstick is autograd through SDPA, graph built first."""
+    import torch
+    import torch.nn.functional as F
+    from minimagen_tpu_torch.ops import attention as attn
+    from minimagen_tpu_torch.ops import flash_attention as fa
+
+    b, h, n, j = shape
+    d = 64
+    kv_shape = (b, j, d) if kind == "mqa" else (b, h, j, d)
+    q = (torch.randn(b, h, n, d, generator=gen, device=DEVICE) * d ** -0.5).to(dtype)
+    k = torch.randn(kv_shape, generator=gen, device=DEVICE).to(dtype)
+    v = torch.randn(kv_shape, generator=gen, device=DEVICE).to(dtype)
+    g = torch.randn(b, h, n, d, generator=gen, device=DEVICE).to(dtype)
+    keep = None
+    if kind == "mha":
+        keep = torch.rand(b, j, generator=gen, device=DEVICE) >= 0.25
+        keep[:, 0] = True
+    bias = None if keep is None else attn.mask_bias(keep)
+    plain, plain_bwd = fa._PLAIN[kind]
+    name = str(dtype).split(".")[-1]
+    out, lse = fa.attention_forward_kernel(kind, q, k, v, bias, with_lse=True)
+    grads = fa.attention_backward_kernel(kind, q, k, v, bias, out, g, lse)
+    refs = plain_bwd(q, k, v, g, attn_bias=bias)
+    fwd_ref = plain(q, k, v, attn_bias=bias)
+    sync()
+    err, lim = _worst([(out, fwd_ref), *zip(grads, refs)], name)
+    row = dict(kernel=f"{kind}_backward", shape=list(shape), dtype=name, max_abs_err=err,
+               limit=lim, bias=bias is not None)
+    row["ms"] = median_ms(lambda: fa.attention_backward_kernel(kind, q, k, v, bias, out, g, lse))
+    row["plain_ms"] = median_ms(lambda: plain_bwd(q, k, v, g, attn_bias=bias))
+    qq, kk, vv = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    kx, vx = ((kk[:, None].expand(b, h, j, d), vv[:, None].expand(b, h, j, d)) if kind == "mqa"
+              else (kk, vv))
+    mask = None if keep is None else keep[:, None, None, :]
+    ys = F.scaled_dot_product_attention(qq, kx, vx, attn_mask=mask, scale=1.0)
+    row["library_ms"] = median_ms(
+        lambda: torch.autograd.grad(ys, (qq, kk, vv), g, retain_graph=True))
+    if bias is not None:  # the biased forward (with the log-sum-exp) and its yardstick
+        row["fwd_ms"] = median_ms(
+            lambda: fa.attention_forward_kernel(kind, q, k, v, bias, with_lse=True))
+        row["fwd_plain_ms"] = median_ms(lambda: plain(q, k, v, attn_bias=bias))
+        row["fwd_library_ms"] = median_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=1.0))
+        fwd_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() \
+            + 4 * (b * h * n + b * j)
+        row["fwd_bound_ms"] = _bound(fwd_bytes, 4 * b * h * n * j * d, name)["bound_ms"]
+    itemsize = q.element_size()
+    # read q, k, v, o, do (and lse, bias); write dq, dk, dv
+    nbytes = (4 * q.numel() + 2 * (k.numel() + v.numel())) * itemsize + 4 * b * h * n \
+        + (0 if bias is None else 4 * b * j)
+    row.update(_bound(nbytes, 10 * b * h * n * j * d, name))
+    return row
+
+
+def check_group_norm_backward(shape, dtype, gen):
+    import torch
+    from minimagen_tpu_torch.ops import group_norm as gn
+
+    b, h, w, c, groups, with_ss = shape
+    x = (torch.randn(b, h, w, c, generator=gen, device=DEVICE) * 2.0 + 0.3).to(dtype)
+    gamma = (1.0 + 0.2 * torch.randn(c, generator=gen, device=DEVICE)).to(dtype)
+    beta = (0.1 * torch.randn(c, generator=gen, device=DEVICE)).to(dtype)
+    scale = shift = None
+    if with_ss:
+        scale, shift = ((0.3 * torch.randn(b, 1, 1, c, generator=gen, device=DEVICE)).to(dtype)
+                        for _ in range(2))
+    g = torch.randn(b, h, w, c, generator=gen, device=DEVICE).to(dtype)
+    kw = dict(groups=groups, silu=True)
+    _, mean, rstd = gn.group_norm_forward_kernel(x, gamma, beta, scale, shift, eps=1e-5, **kw)
+    got = gn.group_norm_backward_kernel(x, gamma, beta, scale, shift, mean, rstd, g, **kw)
+    ref = gn.group_norm_silu_bwd_plain(x, gamma, beta, scale, shift, mean, rstd, g, **kw)
+    sync()
+    name = str(dtype).split(".")[-1]
+    err, lim = _worst([(a, r) for a, r in zip(got, ref) if r is not None], name)
+    row = dict(kernel="group_norm_backward", shape=list(shape), dtype=name, max_abs_err=err,
+               limit=lim)
+    row["ms"] = median_ms(lambda: gn.group_norm_backward_kernel(
+        x, gamma, beta, scale, shift, mean, rstd, g, **kw))
+    row["plain_ms"] = median_ms(lambda: gn.group_norm_silu_bwd_plain(
+        x, gamma, beta, scale, shift, mean, rstd, g, **kw))
+    row["library_ms"] = None  # no single PyTorch call computes this backward
+    # read x and dy, write dx; ~20 float32 operations per element
+    row.update(_bound(3 * x.numel() * x.element_size(), 20 * x.numel(), "float32"))
+    return row
+
+
+def backward_checks(per_stage):
+    return run_checks(per_stage, (lambda *a: check_attention_backward("mqa", *a),
+                                  lambda *a: check_attention_backward("mha", *a),
+                                  check_group_norm_backward), SEED + 1)
+
+
+def _report(rows):
+    bad = []
+    for r in rows:
+        ok = r["max_abs_err"] <= r["limit"]
+        lib = r["library_ms"]
+        log(f"  {r['kernel']:<19} {r['dtype']:<8} {str(tuple(r['shape'])):<28}"
+            f"{' +bias' if r.get('bias') else ''} "
+            f"max_abs_err {r['max_abs_err']:.3e} (limit {r['limit']:.3e}) "
+            f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
+            f"library {lib if lib is None else round(lib, 4)} ms "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) {'ok' if ok else 'FAIL'}"
+            + (f"; biased forward {r['fwd_ms']:.4f} ms plain {r['fwd_plain_ms']:.4f} ms "
+               f"library {r['fwd_library_ms']:.4f} ms bound {r['fwd_bound_ms']:.4f} ms"
+               if "fwd_ms" in r else ""))
+        if not ok:
+            bad.append(r)
+    if bad:
+        raise PhaseError(f"{len(bad)} kernel checks exceed their limit")
+    return rows
+
+
+def _train_batch(n, size=256):
+    """n items of the synthetic set (the lite run's training combos) as a
+    batch on the CPU."""
+    from minimagen_tpu_torch.training import stage_batches
+
+    held = {0, 10, 13}
+    batches = stage_batches(n, n, size, 16, "t5_tiny", combos=[i for i in range(18) if i not in held],
+                            device="cpu")
+    return {k: v[0] for k, v in batches.items()}
+
+
+def ema_ulps(ema0, params, ema, decay):
+    """Largest distance, in float32 ulps, of the updated `ema` from
+    ema0 * d + params * (1 - d) computed in float64, with d and 1 - d rounded
+    to float32 as make_train_step uses them (flat float32 CPU tensors)."""
+    import numpy as np
+    import torch
+
+    d = np.float32(decay)
+    want = ema0.double() * float(d) + params.double() * float(np.float32(1) - d)
+    ulp = np.spacing(np.maximum(np.abs(ema0.numpy()), np.abs(ema.numpy())))
+    return float(((ema.double() - want).abs() / torch.from_numpy(ulp).double()).max())
+
+
+def reference_train_step():
+    """One train step of the committed weights as float32 master parameters
+    at batch 2 with injected draws, on the card (kernels) and on the CPU
+    (plain versions)."""
+    import torch
+    from minimagen_tpu_torch.generate import load_lite
+    from minimagen_tpu_torch.training import make_optimizer, create_train_state, make_train_step
+
+    batch = _train_batch(2)
+    gen = torch.Generator().manual_seed(SEED)
+    draws = []
+    for stage, size in enumerate((64, 256)):
+        d = dict(times=torch.tensor([120, 730]),
+                 noise=torch.randn(2, size, size, 3, generator=gen),
+                 keep_mask=torch.tensor([True, False]))
+        if stage:
+            d.update(lowres_aug_times=torch.tensor([310, 310]),
+                     lowres_noise=torch.randn(2, size, size, 3, generator=gen))
+        draws.append(d)
+    results = {}
+    for dev in (DEVICE, "cpu"):
+        imagen = load_lite(device=dev, dtype=torch.float32, param_dtype=torch.float32)
+        opt = make_optimizer(1e-4)
+        state = create_train_state(imagen, opt, ema=True)
+        step = make_train_step(imagen, opt, ema_decay=EMA_DECAY)
+        ema0 = torch.cat([e.reshape(-1).cpu() for e in state.ema_params])
+        to = lambda dd: {k: v.to(dev) for k, v in dd.items()}  # noqa: E731
+        state, losses = step(state, to(batch), draws=[to(d) for d in draws])
+        per_unet = []
+        for unet in imagen.unets:
+            ps = list(unet.parameters())
+            per_unet.append([torch.cat([t.detach().float().reshape(-1).cpu() for t in ts])
+                             for ts in ([p.grad for p in ps], ps)])
+        ema = torch.cat([e.reshape(-1).cpu() for e in state.ema_params])
+        params = torch.cat([p for _, p in per_unet])
+        results[dev] = (losses.cpu(), per_unet, ema, ema_ulps(ema0, params, ema, EMA_DECAY))
+        del imagen, state
+    rel = lambda a, b: float((a - b).norm() / b.norm())  # noqa: E731
+    (lc, uc, ec, ulc), (lr_, ur, er, ulr) = results[DEVICE], results["cpu"]
+    checks = [("loss", float(((lc - lr_).abs() / lr_.abs()).max()), TRAIN_LOSS_LIMIT)]
+    for i, ((gc, pc), (gr, pr)) in enumerate(zip(uc, ur)):
+        checks += [(f"unet_{i} gradient", rel(gc, gr), TRAIN_GRAD_LIMIT),
+                   (f"unet_{i} parameters", rel(pc, pr), TRAIN_PARAM_LIMIT)]
+    checks += [("EMA", rel(ec, er), TRAIN_PARAM_LIMIT),
+               ("EMA vs its definition, card (ulps)", ulc, EMA_ULP_LIMIT),
+               ("EMA vs its definition, cpu (ulps)", ulr, EMA_ULP_LIMIT)]
+    log(f"  losses card {lc.tolist()} cpu {lr_.tolist()}")
+    for name, val, lim in checks:
+        log(f"  {name}: {val:.3e} (limit {lim}) {'ok' if val <= lim else 'FAIL'}")
+    if any(val > lim for _, val, lim in checks):
+        raise PhaseError("the card's train step disagrees with the CPU reference")
+    return {name: val for name, val, _ in checks}
+
+
+def learn():
+    """train_lite for LEARN_STEPS steps with the launch counts reset just
+    before; checks the learning curve against the committed run."""
+    import numpy as np
+    from minimagen_tpu_torch.ops import kernels
+    from minimagen_tpu_torch.training import train_lite, window_means
+
+    kernels.reset_launch_counts()
+    run = train_lite(LEARN_STEPS, TRAIN_BATCH, device=DEVICE)
+    launches = dict(kernels.LAUNCHES)
+    losses = run.losses
+    first, second = np.array(window_means(losses[:400]))
+    for stage, name in enumerate(("base", "SR")):
+        log(f"  {name}: mean loss steps 1-200 {first[stage]:.4f} (committed "
+            f"{COMMITTED_LOSSES[0][stage]}), steps 201-400 {second[stage]:.4f} (committed "
+            f"{COMMITTED_LOSSES[1][stage]}, limit {LEARN_LIMITS[stage]})")
+    log(f"  host {run.host_ms_per_step:.1f} ms/step (synchronized), launches per step: "
+        + ", ".join(f"{k} {v / LEARN_STEPS:g}" for k, v in launches.items()))
+    failures = []
+    if not np.isfinite(losses).all():
+        failures.append("a loss is not finite")
+    for stage in range(2):
+        if not second[stage] <= LEARN_LIMITS[stage]:
+            failures.append(f"stage {stage} mean over 201-400 above {LEARN_LIMITS[stage]}")
+        if not second[stage] < first[stage]:
+            failures.append(f"stage {stage} did not improve from 1-200 to 201-400")
+    missing = [k for k in BACKWARD_INFO if launches[k] == 0]
+    if missing:
+        failures.append(f"backward kernels never launched: {missing}")
+    if failures:
+        raise PhaseError("; ".join(failures))
+    return run, launches, dict(first=first.tolist(), second=second.tolist(),
+                               ms_per_step=run.host_ms_per_step)
+
+
+def profile_train(run, steps=5):
+    """Host ms per training step (synchronized) and a torch.profiler trace
+    of `steps` steps: device busy ms per step and the largest items."""
+    n_batches = run.batches["image"].shape[0]
+
+    def go():
+        for _ in range(steps):
+            k = run.state.step % n_batches
+            run.step_fn(run.state, {name: v[k] for name, v in run.batches.items()}, seed=SEED)
+        sync()
+
+    go()  # warm-up
+    t0 = time.perf_counter()
+    go()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    items = traced(go)
+    busy_ms = sum(us for _, us in items) / 1e3 / steps
+    log(f"  train step: wall {wall_ms:.2f} ms/step, device busy {busy_ms:.2f} ms/step "
+        f"({'not measured' if busy_ms == 0 else f'{100 * busy_ms / wall_ms:.0f}%'})")
+    for name, us in sorted(items, key=lambda kv: -kv[1])[:10]:
+        log(f"    {us / 1e3 / steps:8.3f} ms/step  {name[:70]}")
+    return dict(wall_ms_per_step=wall_ms, device_busy_ms_per_step=busy_ms)
+
+
 def kernel_entries(rows, launches):
     """One entry per kernel for the JSON line, at the path's heaviest bf16
-    shape (largest bound), with its launches on the main path."""
+    shape (largest bound), with its launches on its main path (sampling for
+    the forward kernels, training for the backward ones)."""
     entries = []
-    for name, (source, replaces) in KERNEL_INFO.items():
+    for name, (source, replaces) in {**KERNEL_INFO, **BACKWARD_INFO}.items():
         bf16 = [r for r in rows if r["kernel"] == name and r["dtype"] == "bfloat16"]
         top = max(bf16, key=lambda r: r["bound_ms"])
-        entries.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                            launches=launches[name], max_abs_err=top["max_abs_err"],
-                            ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+        entries.append(dict(name=name, route="cuda", source=source,
+                            replaces=REPLACES.get(name, replaces), launches=launches[name],
+                            max_abs_err=top["max_abs_err"], ms=top["ms"],
+                            plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
                             bound_by=top["bound_by"], library_ms=top["library_ms"]))
         log(f"  {name}: numbers at {tuple(top['shape'])} bfloat16")
     return entries
@@ -431,6 +852,7 @@ class phase:
 
 
 def main():
+    global _log_file
     t_start = time.time()
     import torch
 
@@ -445,6 +867,8 @@ def main():
         print(f"chip_smoke: the minimagen_tpu_torch package is missing ({e})", file=sys.stderr)
         return 2
 
+    os.makedirs(os.path.dirname(LOG_PATH), exist_ok=True)
+    _log_file = open(LOG_PATH, "w")
     # float32 references in full precision (no TF32 in matmuls or convs)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -457,9 +881,8 @@ def main():
     with phase("build kernels (one nvcc call)"):
         kernels.library()
         with open(os.path.join(kernels.BUILD_DIR, "build.log")) as f:
-            for line in f:
-                if "registers" in line or "spill" in line:
-                    log("  ptxas: " + line.strip())
+            for line in ptxas_summary(f.read()):
+                log("  ptxas: " + line)
     with phase("load_lite(device='cuda')"):
         imagen = load_lite(device=DEVICE)
     with phase("record the main path's kernel shapes"):
@@ -479,21 +902,37 @@ def main():
 
     snapshots = run_main_path(imagen, captions)
     launches = snapshots["fullrev"]
-    missing = [k for k, n in launches.items() if n == 0]
+    missing = [k for k in KERNEL_INFO if launches[k] == 0]
     if missing:
         log(f"kernels never launched on the main path: {missing}")
         return 1
 
     # a measurement, not a check: a profiler that cannot trace the card
-    # leaves the device numbers "not measured" and fails nothing
-    log("[measure] profile: guided DDIM steps of each stage")
-    try:
+    # leaves the device numbers "not measured"; a failing launch still fails
+    with phase("measure: profile guided DDIM steps of each stage"):
         profile_steps(imagen, captions)
-    except (RuntimeError, AttributeError) as e:
-        log(f"  profile not measured: {type(e).__name__}: {e}")
 
-    entries = kernel_entries(rows, launches)
-    log(f"launches per base run {snapshots['base']}; elapsed {time.time() - t_start:.1f} s")
+    with phase("record the training step's kernel shapes (batch 16, both stages)"):
+        train_shapes, step_launches = train_step_shapes()
+        for stage, counts in enumerate(train_shapes):
+            log(f"  stage {stage}: " + ", ".join(
+                f"{name} {len(c)} shapes {sum(c.values())} launches/step"
+                for name, c in counts.items()))
+        log(f"  launches in one training step: {step_launches}")
+    with phase("backward kernels vs plain versions at the training step's shapes"):
+        bwd_rows = backward_checks(train_shapes)
+    with phase("reference train step: card float32 vs cpu float32"):
+        reference_train_step()
+    with phase(f"learn: train_lite, {LEARN_STEPS} steps, batch {TRAIN_BATCH}"):
+        run, train_launches, _ = learn()
+    with phase("measure: profile training steps"):
+        profile_train(run)
+    del run
+
+    entries = kernel_entries(rows + bwd_rows, {**launches, **{
+        k: train_launches[k] for k in BACKWARD_INFO}})
+    log(f"launches per base run {snapshots['base']}; training run {train_launches}; "
+        f"elapsed {time.time() - t_start:.1f} s")
     log(json.dumps({"kernels": entries}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

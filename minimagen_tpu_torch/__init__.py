@@ -1,17 +1,25 @@
 """minimagen_tpu_torch — the PyTorch/CUDA port of ``minimagen_tpu``.
 
 A second package beside the JAX one, for one NVIDIA H100. It mirrors the JAX
-package's layout (``ops/``, ``models/``) so each counterpart is easy to find,
-and it imports neither ``jax`` nor anything of ``minimagen_tpu``: what it needs
-from there is copied.
+package's layout (``ops/``, ``models/``, ``data/``) so each counterpart is
+easy to find, and it imports neither ``jax`` nor anything of
+``minimagen_tpu``: what it needs from there is copied.
 
-What is ported so far is the sampling path through the committed lite
-cascade: the tiny T5 encoder, the 64px base and 256px super-resolution
-U-Nets, pair-batched classifier-free guidance with dynamic thresholding, and
-the DDPM/DDIM samplers with truncated super-resolution. The Pallas kernels on
-that path (multi-query and multi-head attention forward, fused GroupNorm
-forward) are CUDA C++ kernels under ``csrc/``, built with ``nvcc`` at first use
-and bound with ``ctypes`` (``ops/kernels.py``).
+What is ported so far:
+
+- sampling through the committed lite cascade: the tiny T5 encoder, the 64px
+  base and 256px super-resolution U-Nets, pair-batched classifier-free
+  guidance with dynamic thresholding, and the DDPM/DDIM samplers with
+  truncated super-resolution;
+- training on one device: the per-stage loss (l1/l2/huber, min-SNR, offset
+  noise), clip-50 Adam with a float32 EMA, the synthetic captioned-shapes
+  set, and ``training.train_lite``, the lite cascade's recipe (with a
+  float32 Adam first moment where the committed run used bf16).
+
+The Pallas kernels on those paths (multi-query and multi-head attention,
+forward and backward, with an optional mask bias; fused GroupNorm forward and
+backward) are CUDA C++ kernels under ``csrc/``, built with ``nvcc`` at first
+use and bound with ``ctypes`` (``ops/kernels.py``).
 
 Activations are NHWC at every public function, as in the JAX package.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.

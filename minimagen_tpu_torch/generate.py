@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import json
 import os
+from typing import Optional
 
 import torch
 
@@ -37,23 +38,28 @@ def lite_unet_configs():
 
 
 def lite_imagen(text_encoder_name: str = "t5_tiny", dtype=torch.bfloat16,
-                device="cuda") -> Imagen:
-    """The lite 64->256 cascade with randomly initialised weights."""
+                param_dtype: Optional[torch.dtype] = None, device="cuda") -> Imagen:
+    """The lite 64->256 cascade with randomly initialised weights (flax's
+    initialisers, from torch's global generator), computing in `dtype` with
+    parameters in `param_dtype` (default `dtype`)."""
     return Imagen(unets=list(lite_unet_configs()), image_sizes=(64, 256), timesteps=1000,
                   cond_drop_prob=0.1, text_encoder_name=text_encoder_name, dtype=dtype,
-                  device=device)
+                  param_dtype=param_dtype, device=device)
 
 
 def load_lite(device="cuda", ckpt_dir: str = LITE_CKPT_DIR,
-              dtype: torch.dtype = torch.bfloat16) -> Imagen:
+              dtype: torch.dtype = torch.bfloat16,
+              param_dtype: Optional[torch.dtype] = None) -> Imagen:
     """Build the cascade that ``meta.json`` describes and load both U-Nets'
-    weights and its T5 encoder from the committed files."""
+    weights and its T5 encoder from the committed files. With
+    ``param_dtype=torch.float32`` the bf16 weights become float32 master
+    parameters (exactly: a bf16 value is a float32 value)."""
     with open(os.path.join(ckpt_dir, "meta.json")) as f:
         meta = json.load(f)
     config = meta["config"]
     if config["model"] != "lite":
         raise ValueError(f"{ckpt_dir} holds model {config['model']!r}, not 'lite'")
-    imagen = lite_imagen(config["encoder"], dtype=dtype, device=device)
+    imagen = lite_imagen(config["encoder"], dtype=dtype, param_dtype=param_dtype, device=device)
     for i, unet in enumerate(imagen.unets):
         load_unet_checkpoint(os.path.join(ckpt_dir, f"unet_{i}_ema_bf16.ckpt"), unet)
     imagen.text_encoder = TextEncoder(config["encoder"], device)

@@ -1,5 +1,5 @@
-"""Cascade sampling (counterpart of ``minimagen_tpu/models/imagen.py``, the
-sampling half).
+"""Cascade sampling and the training loss (counterpart of
+``minimagen_tpu/models/imagen.py``).
 
 N U-Nets, each with its own diffusion schedule, plus a low-res augmentation
 schedule. Sampling runs classifier-free guidance as ONE pair-batched forward
@@ -11,8 +11,19 @@ reference's order), and may start from that output noised to
 ``sr_start_noise_levels`` instead of pure noise (truncated refinement).
 
 Encoder-feature caching is off (the JAX default ``'auto'`` is a cost model
-fitted on a TPU) and ``guidance_rescale`` is 0. DPM-Solver++, UniPC, the
-``lambda``/``karras`` grids and training are not ported yet.
+fitted on a TPU) and ``guidance_rescale`` is 0. DPM-Solver++, UniPC and the
+``lambda``/``karras`` grids are not ported yet.
+
+Training: :meth:`Imagen.stage_loss` is the JAX package's ``stage_loss_fn``
+(resize the [0, 1] images to the stage's size; for a super-resolution stage
+build the low-res pair by resizing down to the previous stage's size and
+back up, with one random augmentation time for the whole batch) and
+:meth:`Imagen.p_losses` its ``_p_losses`` (noise the images at random times,
+predict the noise with a classifier-free-guidance dropout mask, l1/l2/huber
+loss, optional min-SNR weighting and offset noise). Its draws come from a
+``torch.Generator`` in this order: the times, the augmentation time, the
+noise, the offset noise (when enabled), the augmentation noise, the keep
+mask; each can be injected instead.
 
 Randomness: every draw goes through ``noise(shape)``, by default
 ``torch.randn`` from the caller's generator. The draws come in this order:
@@ -34,6 +45,7 @@ from ..ops.helpers import (
     cast_tuple,
     default,
     normalize_neg_one_to_one,
+    prob_mask_like,
     right_pad_dims_to,
     unnormalize_zero_to_one,
 )
@@ -42,6 +54,32 @@ from .t5 import MAX_LENGTH, TextEncoder, get_encoded_dim
 from .unet import UnetConfig, UnetModel
 
 NoiseFn = Callable[[Sequence[int]], torch.Tensor]
+LossFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+def _elementwise_loss(loss_type: str) -> LossFn:
+    if loss_type == "l1":
+        return lambda pred, target: (pred - target).abs()
+    if loss_type == "l2":
+        return lambda pred, target: (pred - target).square()
+    if loss_type == "huber":
+        def smooth_l1(pred, target, beta=1.0):
+            d = (pred - target).abs()
+            return torch.where(d < beta, 0.5 * d * d / beta, d - 0.5 * beta)
+        return smooth_l1
+    raise NotImplementedError(f"unknown loss type {loss_type!r}")
+
+
+def _loss_fn(loss_type: str) -> LossFn:
+    """l1 / l2 / huber per-element losses, mean-reduced."""
+    per_element = _elementwise_loss(loss_type)
+    return lambda pred, target: per_element(pred, target).mean()
+
+
+def _per_sample_loss_fn(loss_type: str) -> LossFn:
+    """The same losses reduced to one value per batch row (min-SNR weighting)."""
+    per_element = _elementwise_loss(loss_type)
+    return lambda pred, target: per_element(pred, target).mean(dim=tuple(range(1, pred.ndim)))
 
 # rows of at least this many elements take the bisection quantile (the JAX
 # package's default threshold, imagen.py:407-421)
@@ -49,15 +87,26 @@ APPROX_QUANTILE_MIN = 2 ** 17
 
 
 class Imagen:
-    """Cascading text-to-image diffusion model, sampling only."""
+    """Cascading text-to-image diffusion model: sampling and the training loss.
+
+    `dtype` is the U-Nets' compute dtype, `param_dtype` (default `dtype`)
+    the dtype their parameters are held in."""
 
     def __init__(self, unets: Union[UnetConfig, Sequence[UnetConfig]], *,
                  text_encoder_name: str, image_sizes: Union[int, Sequence[int]],
                  text_embed_dim: Optional[int] = None, channels: int = 3,
                  timesteps: Union[int, Sequence[int]] = 1000, cond_drop_prob: float = 0.1,
-                 lowres_sample_noise_level: float = 0.2,
+                 loss_type: str = "l2", lowres_sample_noise_level: float = 0.2,
                  dynamic_thresholding_percentile: float = 0.9,
-                 dtype: torch.dtype = torch.float32, device="cuda"):
+                 min_snr_gamma: Optional[float] = None, offset_noise_scale: float = 0.0,
+                 dtype: torch.dtype = torch.float32, param_dtype: Optional[torch.dtype] = None,
+                 device="cuda"):
+        self.loss_fn = _loss_fn(loss_type)
+        self.per_sample_loss_fn = _per_sample_loss_fn(loss_type)
+        self.min_snr_gamma: Optional[float] = None
+        self.offset_noise_scale = 0.0
+        self.set_training_levers(min_snr_gamma=min_snr_gamma,
+                                 offset_noise_scale=offset_noise_scale)
         self.device = torch.device(device)
         self.dtype = dtype
         self.channels = channels
@@ -71,16 +120,31 @@ class Imagen:
             cfg.cast_model_parameters(lowres_cond=i != 0, text_embed_dim=self.text_embed_dim,
                                       channels=channels, channels_out=channels)
             for i, cfg in enumerate(configs)]
-        self.unets = torch.nn.ModuleList(UnetModel(c, dtype) for c in self.unet_configs)
+        self.unets = torch.nn.ModuleList(UnetModel(c, dtype, param_dtype)
+                                         for c in self.unet_configs)
         self.unets.to(self.device).eval()
         self.image_sizes = cast_tuple(image_sizes)
         if len(self.image_sizes) != len(configs):
             raise ValueError(f"{len(configs)} u-nets for resolutions {self.image_sizes}")
         self.lowres_sample_noise_level = lowres_sample_noise_level
+        self.cond_drop_prob = cond_drop_prob
         self.can_classifier_guidance = cond_drop_prob > 0.0
         self.dynamic_thresholding_percentile = dynamic_thresholding_percentile
         self.text_encoder: Optional[TextEncoder] = None
         self.text_max_length = MAX_LENGTH
+
+    def set_training_levers(self, *, min_snr_gamma: Optional[float] = None,
+                            offset_noise_scale: Optional[float] = None) -> None:
+        """Min-SNR-gamma loss weighting (> 0) and offset-noise scale (>= 0);
+        None leaves a lever as it is."""
+        if min_snr_gamma is not None:
+            if not float(min_snr_gamma) > 0.0:
+                raise ValueError("min_snr_gamma must be > 0")
+            self.min_snr_gamma = float(min_snr_gamma)
+        if offset_noise_scale is not None:
+            if not float(offset_noise_scale) >= 0.0:
+                raise ValueError("offset_noise_scale must be >= 0")
+            self.offset_noise_scale = float(offset_noise_scale)
 
     @property
     def num_unets(self) -> int:
@@ -303,3 +367,97 @@ class Imagen:
                                  lowres_cond_img=lowres, lowres_noise_times=lowres_times,
                                  sampler=sampler, sample_steps=sample_steps, start_at=start_at,
                                  noise=draw)
+
+    # ------------------------------------------------------------------ #
+    # training loss                                                       #
+    # ------------------------------------------------------------------ #
+    def p_losses(self, stage: int, x_start: torch.Tensor, times: torch.Tensor, *,
+                 text_embeds, text_mask, lowres_cond_img=None, lowres_aug_times=None,
+                 noise: Optional[torch.Tensor] = None, lowres_noise: Optional[torch.Tensor] = None,
+                 keep_mask: Optional[torch.Tensor] = None,
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Noise [0, 1] images `x_start` (b, s, s, c) at `times`, predict the
+        noise, return the scalar loss. `noise`, `lowres_noise` and the
+        classifier-free-guidance `keep_mask` (b,) are drawn from `generator`
+        unless given; offset noise applies only to drawn noise."""
+        scheduler = self.noise_schedulers[stage]
+        b = x_start.shape[0]
+        draw = self._noise_fn(None, generator)
+        if noise is None:
+            noise = draw(x_start.shape)
+            if self.offset_noise_scale > 0.0:
+                noise = noise + self.offset_noise_scale * draw((b, 1, 1, x_start.shape[-1]))
+        x_start = normalize_neg_one_to_one(x_start)
+        x_noisy = scheduler.q_sample(x_start=x_start, t=times, noise=noise)
+        lowres_noisy = None
+        if lowres_cond_img is not None:
+            lowres_cond_img = normalize_neg_one_to_one(lowres_cond_img)
+            lowres_aug_times = default(lowres_aug_times, times)
+            if lowres_noise is None:
+                lowres_noise = draw(lowres_cond_img.shape)
+            lowres_noisy = self.lowres_noise_schedule.q_sample(
+                x_start=lowres_cond_img, t=lowres_aug_times, noise=lowres_noise)
+        if keep_mask is None:
+            keep_mask = prob_mask_like((b,), 1.0 - self.cond_drop_prob, generator=generator,
+                                       device=self.device)
+        pred = self.unets[stage](x_noisy, times, text_embeds=text_embeds, text_mask=text_mask,
+                                 text_keep_mask=keep_mask, lowres_cond_img=lowres_noisy,
+                                 lowres_noise_times=lowres_aug_times)
+        if self.min_snr_gamma is None:
+            return self.loss_fn(pred, noise)
+        abar = scheduler.alphas_cumprod[times]
+        snr = abar / (1.0 - abar).clamp(min=1e-20)
+        weight = snr.clamp(max=self.min_snr_gamma) / snr.clamp(min=1e-20)
+        return (weight * self.per_sample_loss_fn(pred, noise)).mean()
+
+    def stage_loss(self, stage: int, images: torch.Tensor, text_embeds, text_mask, *,
+                   generator: Optional[torch.Generator] = None,
+                   times: Optional[torch.Tensor] = None,
+                   lowres_aug_times: Optional[torch.Tensor] = None,
+                   noise: Optional[torch.Tensor] = None,
+                   lowres_noise: Optional[torch.Tensor] = None,
+                   keep_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One stage's loss on full-resolution [0, 1] NHWC `images`: resize
+        to the stage's size; a super-resolution stage conditions on the
+        images resized down to the previous stage's size and back up, noised
+        at one augmentation time shared by the batch. Draws not given come
+        from `generator` (order in the module docstring)."""
+        b, h, w, c = images.shape
+        size = self.image_sizes[stage]
+        if c != self.channels or h < size or w < size:
+            raise ValueError(f"images {tuple(images.shape)} do not fit stage {stage} ({size}px)")
+        if times is None:
+            times = self.noise_schedulers[stage].sample_random_times(b, generator)
+        lowres = None
+        if stage > 0:
+            clamp = (0.0, 1.0)
+            lowres = resize_image_to(images, self.image_sizes[stage - 1], clamp_range=clamp)
+            lowres = resize_image_to(lowres, size, clamp_range=clamp)
+            if lowres_aug_times is None:
+                lowres_aug_times = self.lowres_noise_schedule.sample_random_times(
+                    1, generator).expand(b)
+        return self.p_losses(stage, resize_image_to(images, size), times,
+                             text_embeds=text_embeds, text_mask=text_mask, lowres_cond_img=lowres,
+                             lowres_aug_times=lowres_aug_times if stage > 0 else None,
+                             noise=noise, lowres_noise=lowres_noise, keep_mask=keep_mask,
+                             generator=generator)
+
+    def forward(self, images, texts: Optional[List[str]] = None, text_embeds=None,
+                text_masks=None, unet_number: Optional[int] = None, *,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Training loss of U-Net `unet_number` (1-based; required for a
+        cascade) on [0, 1] NHWC `images` and their captions or encodings."""
+        if self.num_unets > 1 and unet_number is None:
+            raise ValueError(f"pass unet_number, 1 to {self.num_unets}, to train a cascade")
+        stage = default(unet_number, 1) - 1
+        if texts is not None and text_embeds is None and len(texts) != len(images):
+            raise ValueError("the number of captions does not match the number of images")
+        text_embeds, text_masks = self._text_inputs(texts, text_embeds, text_masks)
+        # encodings made under inference_mode cannot be saved for backward
+        text_embeds = text_embeds.clone() if text_embeds.is_inference() else text_embeds
+        if text_masks is not None and text_masks.is_inference():
+            text_masks = text_masks.clone()
+        images = torch.as_tensor(images, dtype=torch.float32, device=self.device)
+        return self.stage_loss(stage, images, text_embeds, text_masks, generator=generator)
+
+    __call__ = forward

@@ -5,10 +5,15 @@ as NCHW with channels-last strides, so no copy is made around it. Module and
 parameter names are the flax names (``kernel`` becomes ``weight``), so a JAX
 parameter tree maps onto a ``state_dict`` by name (``checkpoint.py``).
 
-A module computes in the dtype of its parameters: the JAX modules cast every
-parameter to the activation dtype at use, and the committed weights are
-bfloat16, so holding them in the activation dtype gives the same numbers.
-Normalisation statistics and softmaxes are float32 whatever that dtype.
+Parameters may be held in another dtype than the activations (float32
+master weights for training, as the JAX package keeps): every module casts
+its parameters to the activation dtype at use, as flax does with ``dtype=``.
+With float32 parameters that hold bfloat16 values, a bfloat16 forward is
+bit-equal to one with bfloat16 parameters. Initialisation follows flax:
+dense and convolution kernels ``lecun_normal`` (a normal truncated at two
+standard deviations, variance 1/fan_in), biases zeros, norms ones and zeros,
+learned null embeddings ``normal(1.0)``. Normalisation statistics and
+softmaxes are float32 whatever the activation dtype.
 """
 from __future__ import annotations
 
@@ -30,8 +35,50 @@ RESNET_GROUPS = 8
 ScaleShift = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
 
-class Conv(nn.Conv2d):
-    """``nn.Conv2d`` on NHWC activations."""
+# flax's lecun_normal: truncated_normal(-2, 2) scaled by sqrt(1 / fan_in) over
+# the standard deviation of that truncated normal
+_TRUNC_STD = 0.87962566103423978
+
+
+def lecun_normal_(weight: torch.Tensor, fan_in: int) -> torch.Tensor:
+    std = fan_in ** -0.5 / _TRUNC_STD
+    with torch.no_grad():
+        return nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std)
+
+
+def _cast(p: Optional[torch.Tensor], x: torch.Tensor) -> Optional[torch.Tensor]:
+    return None if p is None else p.to(x.dtype)
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` with flax's init that casts its parameters to the
+    input's dtype at use."""
+
+    def reset_parameters(self) -> None:
+        lecun_normal_(self.weight, self.in_features)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, _cast(self.weight, x), _cast(self.bias, x))
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` (NCHW) with flax's init that casts its parameters to
+    the input's dtype at use."""
+
+    def reset_parameters(self) -> None:
+        kh, kw = self.kernel_size
+        lecun_normal_(self.weight, self.in_channels // self.groups * kh * kw)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, _cast(self.weight, x), _cast(self.bias, x))
+
+
+class Conv(Conv2d):
+    """:class:`Conv2d` on NHWC activations."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
@@ -123,13 +170,13 @@ class Attention(nn.Module):
         self.heads, self.dim_head = heads, dim_head
         inner_dim = dim_head * heads
         self.norm = LayerNorm(dim)
-        self.to_q = nn.Linear(dim, inner_dim, bias=False)
-        self.to_kv = nn.Linear(dim, dim_head * 2, bias=False)
+        self.to_q = Dense(dim, inner_dim, bias=False)
+        self.to_kv = Dense(dim, dim_head * 2, bias=False)
         self.null_kv = nn.Parameter(torch.randn(2, dim_head))
         if context_dim is not None:
             self.context_norm = AffineLayerNorm(context_dim)
-            self.to_context = nn.Linear(context_dim, dim_head * 2)
-        self.to_out = nn.Linear(inner_dim, dim, bias=False)
+            self.to_context = Dense(context_dim, dim_head * 2)
+        self.to_out = Dense(inner_dim, dim, bias=False)
         self.out_norm = LayerNorm(dim)
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
@@ -167,10 +214,10 @@ class CrossAttention(nn.Module):
         self.norm = LayerNorm(dim)
         if norm_context:
             self.norm_context = LayerNorm(context_dim)
-        self.to_q = nn.Linear(dim, inner_dim, bias=False)
-        self.to_kv = nn.Linear(context_dim, inner_dim * 2, bias=False)
+        self.to_q = Dense(dim, inner_dim, bias=False)
+        self.to_kv = Dense(context_dim, inner_dim * 2, bias=False)
         self.null_kv = nn.Parameter(torch.randn(2, dim_head))
-        self.to_out = nn.Linear(inner_dim, dim, bias=False)
+        self.to_out = Dense(inner_dim, dim, bias=False)
         self.out_norm = LayerNorm(dim)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor,
@@ -225,7 +272,7 @@ class ResnetBlock(nn.Module):
                  time_cond_dim: Optional[int] = None, groups: int = RESNET_GROUPS):
         super().__init__()
         if time_cond_dim is not None:
-            self.time_mlp = nn.Linear(time_cond_dim, dim_out * 2)
+            self.time_mlp = Dense(time_cond_dim, dim_out * 2)
         self.block1 = Block(dim, dim_out, groups=groups)
         if cond_dim is not None:
             self.cross_attn = CrossAttention(dim=dim_out, context_dim=cond_dim)
@@ -257,9 +304,9 @@ class ChanFeedForward(nn.Module):
         super().__init__()
         hidden_dim = int(dim * mult)
         self.norm_in = ChanLayerNorm(dim)
-        self.expand = nn.Linear(dim, hidden_dim, bias=False)
+        self.expand = Dense(dim, hidden_dim, bias=False)
         self.norm_mid = ChanLayerNorm(hidden_dim)
-        self.project = nn.Linear(hidden_dim, dim, bias=False)
+        self.project = Dense(hidden_dim, dim, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.gelu(self.expand(self.norm_in(x)))
@@ -298,8 +345,8 @@ class CrossEmbedLayer(nn.Module):
         dim_scales = [*dim_scales, dim_out - sum(dim_scales)]
         self.num_convs = len(kernel_sizes)
         for i, (kernel, dim_scale) in enumerate(zip(kernel_sizes, dim_scales)):
-            self.add_module(f"conv_{i}", nn.Conv2d(dim_in, dim_scale, kernel, stride=stride,
-                                                   padding=(kernel - stride) // 2))
+            self.add_module(f"conv_{i}", Conv2d(dim_in, dim_scale, kernel, stride=stride,
+                                                padding=(kernel - stride) // 2))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         convs = [getattr(self, f"conv_{i}") for i in range(self.num_convs)]

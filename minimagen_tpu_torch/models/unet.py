@@ -26,6 +26,7 @@ from .layers import (
     Attention,
     Conv,
     CrossEmbedLayer,
+    Dense,
     Downsample,
     ParallelSum,
     ResnetBlock,
@@ -144,24 +145,26 @@ SuperTest = _preset("SuperTest", dict(
 
 class UnetModel(nn.Module):
     """The U-Net built from a :class:`UnetConfig`, computing in `dtype`
-    (its parameters are held in that dtype). Images are NHWC."""
+    with its parameters held in `param_dtype` (default: `dtype`) and cast at
+    use. Images are NHWC."""
 
-    def __init__(self, config: UnetConfig, dtype: torch.dtype = torch.float32):
+    def __init__(self, config: UnetConfig, dtype: torch.dtype = torch.float32,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         cfg = self.config = config
         self.dtype = dtype
         cond_dim, tcd = cfg.resolved_cond_dim, cfg.time_cond_dim
 
         for prefix in ("to_", "to_lowres_") if cfg.lowres_cond else ("to_",):
-            self.add_module(f"{prefix}time_hiddens", nn.Linear(cfg.dim, tcd))
-            self.add_module(f"{prefix}time_cond", nn.Linear(tcd, tcd))
-            self.add_module(f"{prefix}time_tokens", nn.Linear(tcd, cond_dim * NUM_TIME_TOKENS))
+            self.add_module(f"{prefix}time_hiddens", Dense(cfg.dim, tcd))
+            self.add_module(f"{prefix}time_cond", Dense(tcd, tcd))
+            self.add_module(f"{prefix}time_tokens", Dense(tcd, cond_dim * NUM_TIME_TOKENS))
 
-        self.text_to_cond = nn.Linear(cfg.text_embed_dim, cond_dim)
+        self.text_to_cond = Dense(cfg.text_embed_dim, cond_dim)
         self.null_text_embed = nn.Parameter(torch.randn(1, MAX_TEXT_LEN, cond_dim))
         self.text_nonattn_norm = AffineLayerNorm(cond_dim)
-        self.text_nonattn_dense1 = nn.Linear(cond_dim, tcd)
-        self.text_nonattn_dense2 = nn.Linear(tcd, tcd)
+        self.text_nonattn_dense1 = Dense(cond_dim, tcd)
+        self.text_nonattn_dense2 = Dense(tcd, tcd)
         self.null_text_hidden = nn.Parameter(torch.randn(1, tcd))
         self.norm_cond = AffineLayerNorm(cond_dim)
 
@@ -214,7 +217,7 @@ class UnetModel(nn.Module):
         self.final_res_block = ResnetBlock(cfg.dim, cfg.dim, time_cond_dim=tcd,
                                            groups=layer_params[0][2])
         self.final_conv = Conv(cfg.dim, cfg.resolved_channels_out, 3, padding=1)
-        self.to(dtype)
+        self.to(default(param_dtype, dtype))
 
     def _time_condition(self, time, lowres_noise_times):
         cfg = self.config

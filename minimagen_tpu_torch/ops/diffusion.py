@@ -2,11 +2,13 @@
 
 The linear beta schedule (scaled by 1000/T) is computed in float64 numpy and
 stored as float32 tensors, exactly as the JAX package does, so both hold the
-same buffers bit for bit. Only what the sampling path uses is ported here:
+same buffers bit for bit. What sampling and training use is ported here:
 ``q_sample``, ``q_posterior``, ``predict_start_from_noise``, the ``time`` grid
-of ``strided_sampling_timesteps`` and ``ddim_step``.
+of ``strided_sampling_timesteps``, ``ddim_step`` and ``sample_random_times``.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -78,6 +80,13 @@ class GaussianDiffusion:
                 + extract(self.posterior_mean_coef2, t, nd) * x_t)
         return (mean, extract(self.posterior_variance, t, nd),
                 extract(self.posterior_log_variance_clipped, t, nd))
+
+    def sample_random_times(self, batch_size: int,
+                            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Uniform integer timesteps in [0, T), drawn from `generator` on the
+        schedule's device."""
+        return torch.randint(0, self.num_timesteps, (batch_size,), generator=generator,
+                             device=self.betas.device)
 
     def get_times(self, batch_size: int, noise_level: float, device="cuda") -> torch.Tensor:
         """Full batch of the timestep at a fixed noise level."""

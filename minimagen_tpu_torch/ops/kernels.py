@@ -36,17 +36,26 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signatures of the entry points: name -> argtypes (all return int status)
+_ATTN_FWD = [_P] * 6 + [_I] * 6 + [_P]   # q k v bias o lse, b h n j d dtype, stream
+_ATTN_BWD = [_P] * 11 + [_I] * 6 + [_P]  # q k v bias o do lse dq dk dv scratch, ...
 SIGNATURES = {
-    "mmt_mqa_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "mmt_mha_forward": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "mmt_mqa_forward": _ATTN_FWD,
+    "mmt_mha_forward": _ATTN_FWD,
+    "mmt_mqa_backward": _ATTN_BWD,
+    "mmt_mha_backward": _ATTN_BWD,
     "mmt_group_norm_forward": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                ctypes.c_float, _I, _I, _P],
+    "mmt_group_norm_backward": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _I, _I, _I, _P],
 }
 # helpers that launch nothing: name -> argtypes (return int)
-QUERIES = {"mmt_group_norm_scratch_floats": [_I, _I, _I, _I]}
+QUERIES = {"mmt_group_norm_scratch_floats": [_I, _I, _I, _I],
+           "mmt_group_norm_bwd_scratch_floats": [_I, _I, _I, _I]}
 
 # kernel name -> launches since the last reset_launch_counts()
-LAUNCHES: Dict[str, int] = {"mqa_forward": 0, "mha_forward": 0, "group_norm_forward": 0}
+LAUNCHES: Dict[str, int] = {name: 0 for name in (
+    "mqa_forward", "mha_forward", "group_norm_forward",
+    "mqa_backward", "mha_backward", "group_norm_backward")}
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

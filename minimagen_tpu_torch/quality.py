@@ -1,15 +1,11 @@
 """Caption-colour quality metrics of the synthetic shapes set
 (counterparts of ``tools/flagship_quality_eval.py::color_metric`` and
-``grad_mean``, with the palette of ``minimagen_tpu/data/dataset.py``)."""
+``grad_mean``, with the palette of ``data/dataset.py``)."""
 from __future__ import annotations
 
 import numpy as np
 
-# colour name -> RGB in [0, 1] (copied from minimagen_tpu/data/dataset.py)
-SYNTH_COLORS = {
-    "red": (0.9, 0.1, 0.1), "green": (0.1, 0.8, 0.15), "blue": (0.15, 0.2, 0.9),
-    "yellow": (0.9, 0.85, 0.1), "purple": (0.6, 0.15, 0.75), "orange": (0.95, 0.55, 0.1),
-}
+from .data.dataset import _SYNTH_COLORS as SYNTH_COLORS  # colour name -> RGB in [0, 1]
 
 
 def color_metric(images: np.ndarray, captions) -> float:

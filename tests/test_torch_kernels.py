@@ -133,3 +133,123 @@ def test_group_norm_kernel_matches_plain_on_card(cuda, dtype, shape, with_ss_sil
     ref = tgn.group_norm_silu_plain(x, gamma, beta, **kw)
     torch.cuda.synchronize()
     assert float((out.float() - ref.float()).abs().max()) <= _tol(dtype, ref.float())
+
+
+# --------------------------------------------------------------------------- #
+# backward kernels against their plain versions (need the card)               #
+# --------------------------------------------------------------------------- #
+def _mask_bias_np(b, j, seed=3):
+    """A (b, 1, 1, j) float32 bias from a mask that drops about a quarter of
+    the keys (never key 0, the null token)."""
+    rng = np.random.default_rng(seed)
+    keep = rng.uniform(size=(b, j)) >= 0.25
+    keep[:, 0] = True
+    return np.where(keep, 0.0, tflash.NEG_INF).astype(np.float32)[:, None, None, :]
+
+
+def _attention_case(cuda, dtype, kind, b, n, j, with_bias, seed=5):
+    q, k, v = (_t(a).to(cuda, dtype) for a in _qkv(b, 8, n, j, 64, kind == "mha", seed))
+    g = _t(np.random.default_rng(seed + 1).normal(size=q.shape).astype(np.float32)).to(cuda, dtype)
+    bias = _t(_mask_bias_np(b, j)).to(cuda) if with_bias else None
+    return q, k, v, g, bias
+
+
+ATTN_BWD_CASES = [("mqa", 2, 64, 65, False), ("mqa", 2, 1024, 1025, False),
+                  ("mqa", 2, 100, 130, True), ("mha", 2, 1024, 259, False),
+                  ("mha", 2, 256, 261, True), ("mha", 2, 100, 7, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,b,n,j,with_bias", ATTN_BWD_CASES)
+def test_attention_backward_kernels_match_plain_on_card(cuda, dtype, kind, b, n, j, with_bias):
+    """Forward (with the bias and the log-sum-exp) and backward kernels
+    against the plain versions: bf16 within 2^-6 of the largest output (P
+    and dS are rounded to bf16 as tensor-core operands, and D comes from the
+    stored bf16 O), float32 within 2e-5 relative."""
+    q, k, v, g, bias = _attention_case(cuda, dtype, kind, b, n, j, with_bias)
+    plain, plain_bwd = tflash._PLAIN[kind]
+    out, lse = tflash.attention_forward_kernel(kind, q, k, v, bias, with_lse=True)
+    grads = tflash.attention_backward_kernel(kind, q, k, v, bias, out, g, lse)
+    refs = (plain(q, k, v, attn_bias=bias), *plain_bwd(q, k, v, g, attn_bias=bias))
+    torch.cuda.synchronize()
+    for name, got, ref in zip(("out", "dq", "dk", "dv"), (out, *grads), refs):
+        assert got.dtype == ref.dtype and got.shape == ref.shape, name
+        err = float((got.float() - ref.float()).abs().max())
+        assert err <= _tol(dtype, ref.float()), (name, err)
+    s = torch.einsum("bhnd,bjd->bhnj" if kind == "mqa" else "bhnd,bhjd->bhnj", q.float(), k.float())
+    ref_lse = torch.logsumexp(s if bias is None else s + bias, dim=-1)
+    assert float((lse - ref_lse).abs().max()) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["mqa", "mha"])
+def test_attention_backward_is_deterministic_on_card(cuda, kind):
+    """dk and dv are summed in a fixed order: two runs give the same bits."""
+    q, k, v, g, bias = _attention_case(cuda, torch.bfloat16, kind, 4, 1024, 1025 if kind == "mqa" else 259,
+                                       kind == "mha")
+    out, lse = tflash.attention_forward_kernel(kind, q, k, v, bias, with_lse=True)
+    first = tflash.attention_backward_kernel(kind, q, k, v, bias, out, g, lse)
+    second = tflash.attention_backward_kernel(kind, q, k, v, bias, out, g, lse)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_autograd_functions_launch_backward_kernels_on_card(cuda):
+    """torch.autograd through the wrappers launches each backward kernel
+    once, and a masked multi_head_attention takes the biased kernel."""
+    from minimagen_tpu_torch.ops import attention as tattn
+
+    kernels.reset_launch_counts()
+    q, k, v, g, _ = _attention_case(cuda, torch.bfloat16, "mqa", 2, 64, 65, False)
+    q.requires_grad_()
+    k.requires_grad_()
+    dq, dk = torch.autograd.grad(tflash.mqa_flash(q, k, v), (q, k), g)
+    assert dq.shape == q.shape and dk.shape == k.shape
+    q, k, v, g, _ = _attention_case(cuda, torch.bfloat16, "mha", 2, 64, 19, False)
+    mask = torch.ones(2, 19, dtype=torch.bool, device=cuda)
+    mask[1, 10:] = False
+    q.requires_grad_()
+    out = tattn.multi_head_attention(q, k, v, mask=mask)
+    (dq,) = torch.autograd.grad(out, (q,), g)
+    ref = tflash.mha_plain(q.detach(), k, v, mask=mask)
+    err = float((out.detach().float() - ref.float()).abs().max())
+    assert err <= _tol(torch.bfloat16, ref.float())
+    x, gamma, beta, ss = _gn_inputs(2, 8, 8, 64)
+    x = _t(x).to(cuda, torch.bfloat16).requires_grad_()
+    gamma = _t(gamma).to(cuda).requires_grad_()
+    y = tgn.group_norm_silu(x, gamma, _t(beta).to(cuda),
+                            scale_shift=tuple(_t(s).to(cuda, torch.bfloat16) for s in ss),
+                            groups=8, silu=True)
+    dx, dgamma = torch.autograd.grad(y, (x, gamma), torch.ones_like(y))
+    assert dx.dtype == torch.bfloat16 and dgamma.dtype == torch.float32
+    assert {n: kernels.LAUNCHES[n] for n in ("mqa_backward", "mha_backward", "group_norm_backward")} \
+        == {"mqa_backward": 1, "mha_backward": 1, "group_norm_backward": 1}
+    assert kernels.LAUNCHES["mha_forward"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 64, 64, 64), (4, 8, 8, 256), (2, 256, 256, 32),
+                                   (2, 8, 8, 512), (3, 5, 7, 16)])
+@pytest.mark.parametrize("with_ss_silu", [True, False])
+def test_group_norm_backward_kernel_matches_plain_on_card(cuda, dtype, shape, with_ss_silu):
+    """dx, dgamma, dbeta, dscale and dshift against the plain float32 closed
+    form at the kernel's own statistics; limits as for the forward, per
+    output."""
+    x, gamma, beta, ss = _gn_inputs(*shape)
+    scale, shift = (_t(s).to(cuda, dtype) for s in ss) if with_ss_silu else (None, None)
+    x, gamma, beta = _t(x).to(cuda, dtype), _t(gamma).to(cuda, dtype), _t(beta).to(cuda, dtype)
+    g = _t(np.random.default_rng(9).normal(size=shape).astype(np.float32)).to(cuda, dtype)
+    kw = dict(groups=8, silu=with_ss_silu)
+    _, mean, rstd = tgn.group_norm_forward_kernel(x, gamma, beta, scale, shift, eps=1e-5, **kw)
+    got = tgn.group_norm_backward_kernel(x, gamma, beta, scale, shift, mean, rstd, g, **kw)
+    ref = tgn.group_norm_silu_bwd_plain(x, gamma, beta, scale, shift, mean, rstd, g, **kw)
+    torch.cuda.synchronize()
+    for name, a, r in zip(("dx", "dgamma", "dbeta", "dscale", "dshift"), got, ref):
+        if r is None:
+            assert a is None, name
+            continue
+        err = float((a.float() - r.float()).abs().max())
+        assert err <= _tol(dtype, r.float()), (name, err)
