@@ -44,6 +44,33 @@ Phases, one line each with elapsed seconds; any failure exits non-zero:
 13. a measurement, not a check: host ms per training step and a
    torch.profiler trace of 5 steps.
 
+The reference's default cascade (``generate.default_imagen``: Base at 64px,
+Super at 128px, t5_base through the hash encoder, 2.33B parameters, fresh
+seeded init, float32 master parameters, bf16 compute), after the lite
+objects are freed:
+
+14. record its kernel shapes: one guided forward per stage at 8 rows and one
+   forward and backward of both stage losses at batch 2, with the hooks.
+15. every forward and backward kernel against its plain version at those
+   shapes (GroupNorm at 128-3584 channels, depth-to-space + bias bit-equal),
+   attention forward and backward at batch * heads = 65544, and the whole
+   stem alone at each stem shape of both cascades in three formulations
+   (reference convs, s2d-4 + kernel 8, s2d-2 + kernel 8), a measurement.
+16. reference: Base at 16px and Super at 32px (over a 16px low-res image),
+   full width and depth, one caption guided, float32 on the card against a
+   CPU copy of the same weights.
+17. serve, with the launch counts reset just before it: 4 eval captions,
+   cond_scale 3.0, DDIM-50 through both stages; images finite in [0, 1],
+   every forward kernel launched, peak memory; then the per-step profile of
+   each stage.
+18. train, with the launch counts reset just before it: 3 steps of both
+   stages at batch 2 (train.py's default) with make_train_step: losses
+   finite, parameters moved, the EMA within 2 float32 ulps of its
+   definition, every backward kernel launched, peak memory.
+
+The lite sampling profile (phase 8) also times the stem alone (a
+record_function range around it, and a trace of the SR stem by itself).
+
 Then it prints the kernels' JSON line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. It exits non-zero without a result when no CUDA card is present or the
 package is missing.
@@ -90,6 +117,8 @@ KERNEL_INFO = {
                     "minimagen_tpu/ops/flash_attention.py:97"),
     "group_norm_forward": ("minimagen_tpu_torch/csrc/group_norm.cu",
                            "minimagen_tpu/ops/group_norm.py:89"),
+    "depth_to_space_bias": ("minimagen_tpu_torch/csrc/depth_to_space.cu",
+                            "minimagen_tpu/ops/stem_conv.py:146"),
 }
 BACKWARD_INFO = {
     "mqa_backward": ("minimagen_tpu_torch/csrc/flash_attention.cu",
@@ -100,6 +129,15 @@ BACKWARD_INFO = {
                             "minimagen_tpu/ops/group_norm.py:156"),
 }
 REPLACES = {"mha_forward": "minimagen_tpu/ops/flash_attention.py:97 and :349"}
+# the default cascade: captions served, training batch (train.py's
+# --BATCH_SIZE) and steps, and its caption length (--MAX_NUM_WORDS)
+DEFAULT_CAPTIONS = 4
+DEFAULT_TRAIN_BATCH = 2
+DEFAULT_TRAIN_STEPS = 3
+DEFAULT_MAX_WORDS = 64
+# (b, h, w, cin, dim) of every stem input the hooks saw, for the formulation
+# timings
+STEM_SHAPES = set()
 
 
 class PhaseError(RuntimeError):
@@ -125,20 +163,22 @@ def device_kernel_times(prof):
             and not getattr(e, "is_user_annotation", False)]
 
 
-def traced(fn):
+def traced(fn, ranges=()):
     """Run fn() under a torch.profiler trace of the card; returns the trace's
-    (name, device us) kernel items, or [] when the profiler itself cannot
-    start or stop (no CUPTI on the machine). An error raised by fn() is
-    never caught."""
+    (name, device us) kernel items and {name: device us of the kernels
+    inside that record_function range} for each name of `ranges`; both
+    empty (zeros) when the profiler itself cannot start or stop (no CUPTI on
+    the machine). An error raised by fn() is never caught."""
     from torch.profiler import ProfilerActivity, profile
 
+    items, spans = [], {name: 0.0 for name in ranges}
     try:
         prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
         prof.start()
     except (RuntimeError, AttributeError) as e:
         log(f"  the profiler did not start ({type(e).__name__}: {e}): device time not measured")
         fn()
-        return []
+        return items, spans
     try:
         fn()
     except BaseException:
@@ -146,10 +186,34 @@ def traced(fn):
         raise
     try:
         prof.stop()
-        return device_kernel_times(prof)
+        items = device_kernel_times(prof)
+        for e in prof.key_averages():
+            if e.key in spans and e.device_type.name == "CPU":
+                spans[e.key] = max(spans[e.key], e.device_time_total)
     except (RuntimeError, AttributeError) as e:
         log(f"  the profiler did not stop ({type(e).__name__}: {e}): device time not measured")
-        return []
+    return items, spans
+
+
+def stem_ranges(imagen):
+    """A record_function range named "stem" around every U-Net's stem
+    (forward pre- and post-hooks); returns the hook handles."""
+    from torch.profiler import record_function
+
+    handles, open_ranges = [], []
+
+    def enter(mod, args):
+        rf = record_function("stem")
+        rf.__enter__()
+        open_ranges.append(rf)
+
+    def leave(mod, args, out):
+        open_ranges.pop().__exit__(None, None, None)
+
+    for unet in imagen.unets:
+        handles += [unet.init_conv.register_forward_pre_hook(enter),
+                    unet.init_conv.register_forward_hook(leave)]
+    return handles
 
 
 def device_line():
@@ -212,7 +276,8 @@ def hook_kernel_shapes(imagen):
     """Forward pre-hooks on the modules of every U-Net that call the
     forward kernels. Returns (per-stage {kernel: Counter(shape)}, hook
     handles): attention shapes (b, h, n, j), GroupNorm (b, h, w, c,
-    groups, with scale-shift)."""
+    groups, with scale-shift), depth-to-space + bias (b, H', W', f*f*c, f).
+    Stem inputs are also added to STEM_SHAPES."""
     import collections
 
     from minimagen_tpu_torch.models import layers
@@ -233,8 +298,15 @@ def hook_kernel_shapes(imagen):
             ctx = kwargs["context"] if "context" in kwargs else args[1]
             counts["mha_forward"][(b, mod.heads, n, ctx.shape[1] + 1)] += 1
 
+        def on_stem(mod, args, kwargs, counts=counts):
+            b, h, w, cin = args[0].shape
+            dim = sum(getattr(mod, f"conv_{i}").out_channels for i in range(mod.num_convs))
+            STEM_SHAPES.add((b, h, w, cin, dim))
+            if mod.stride == 1 and h % 4 == 0 and w % 4 == 0:  # the s2d-4 forward
+                counts["depth_to_space_bias"][(b, h // 4, w // 4, 16 * dim, 4)] += 1
+
         table = {layers.GroupNorm: on_gn, layers.Attention: on_attn,
-                 layers.CrossAttention: on_cross}
+                 layers.CrossAttention: on_cross, layers.CrossEmbedLayer: on_stem}
         for mod in unet.modules():
             if type(mod) in table:
                 handles.append(mod.register_forward_pre_hook(table[type(mod)], with_kwargs=True))
@@ -347,6 +419,29 @@ def check_group_norm(shape, dtype, gen):
     return row
 
 
+def check_depth_to_space(shape, dtype, gen):
+    """Kernel 8 against its plain version: the same bits (limit 0)."""
+    import torch
+    from minimagen_tpu_torch.ops import stem_conv as sc
+
+    b, h, w, cf, f = shape
+    y2 = torch.randn(b, h, w, cf, generator=gen, device=DEVICE).to(dtype)
+    bias = torch.randn(cf // (f * f), generator=gen, device=DEVICE).to(dtype)
+    out = sc.depth_to_space_bias(y2, bias, f)
+    ref = sc.depth_to_space_bias_plain(y2, bias, f)
+    sync()
+    name = str(dtype).split(".")[-1]
+    err = float((out.float() - ref.float()).abs().max())
+    row = dict(kernel="depth_to_space_bias", shape=list(shape), dtype=name,
+               max_abs_err=err if torch.equal(out, ref) or err > 0 else float("nan"), limit=0.0)
+    row["ms"] = median_ms(lambda: sc.depth_to_space_bias(y2, bias, f))
+    row["plain_ms"] = median_ms(lambda: sc.depth_to_space_bias_plain(y2, bias, f))
+    row["library_ms"] = None  # pixel_shuffle orders channels (c, py, px) and adds no bias
+    # read y2 and the bias, write the output; one float32 add per element
+    row.update(_bound((2 * y2.numel() + bias.numel()) * y2.element_size(), y2.numel(), "float32"))
+    return row
+
+
 def _bound(nbytes, ops, dtype_name):
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     op_ms = ops / PEAK_OPS[dtype_name] * 1e3
@@ -354,33 +449,39 @@ def _bound(nbytes, ops, dtype_name):
 
 
 def run_checks(per_stage, checks, seed, extra_mha_j=()):
-    """Each checker of `checks` (mqa, mha, group norm) at every shape of
-    `per_stage`, in bfloat16 then float32; multi-head attention also at
-    the context lengths `extra_mha_j`. Prints one line per shape, raises if
-    any exceeds its limit."""
+    """Each checker of `checks` ({forward kernel whose recorded shapes it
+    takes: checker}) at every shape of `per_stage`, in bfloat16 then
+    float32; multi-head attention also at the context lengths
+    `extra_mha_j`. Prints one line per shape, raises if any exceeds its
+    limit."""
     import torch
 
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
-    shapes = {name: set() for name in KERNEL_INFO}
+    shapes = {name: set() for name in checks}
     for counts in per_stage:
         for name, c in counts.items():
-            shapes[name].update(c)
-    for b, h, n, _ in list(shapes["mha_forward"]):
-        shapes["mha_forward"].update((b, h, n, j) for j in extra_mha_j)
-    mqa, mha, gn = checks
+            if name in shapes:
+                shapes[name].update(c)
+    if "mha_forward" in shapes:
+        for b, h, n, _ in list(shapes["mha_forward"]):
+            shapes["mha_forward"].update((b, h, n, j) for j in extra_mha_j)
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
-        rows += [mqa(shape, dtype, gen) for shape in sorted(shapes["mqa_forward"])]
-        rows += [mha(shape, dtype, gen) for shape in sorted(shapes["mha_forward"])]
-        rows += [gn(shape, dtype, gen) for shape in sorted(shapes["group_norm_forward"])]
+        for name, check in checks.items():
+            rows += [check(shape, dtype, gen) for shape in sorted(shapes[name])]
     return _report(rows)
 
 
-def kernel_checks(per_stage):
-    """The forward kernels, also at short text contexts (max_length 16)."""
-    return run_checks(per_stage, (lambda *a: check_attention("mqa", *a),
-                                  lambda *a: check_attention("mha", *a), check_group_norm),
-                      SEED, extra_mha_j=(19, 21))
+FORWARD_CHECKS = {"mqa_forward": lambda *a: check_attention("mqa", *a),
+                  "mha_forward": lambda *a: check_attention("mha", *a),
+                  "group_norm_forward": check_group_norm,
+                  "depth_to_space_bias": check_depth_to_space}
+
+
+def kernel_checks(per_stage, extra_mha_j=(19, 21)):
+    """The forward kernels, multi-head attention also at short text contexts
+    (max_length 16)."""
+    return run_checks(per_stage, FORWARD_CHECKS, SEED, extra_mha_j=extra_mha_j)
 
 
 # --------------------------------------------------------------------------- #
@@ -466,10 +567,10 @@ def run_main_path(imagen, captions):
 
 
 def profile_steps(imagen, captions, steps=5):
-    """Time `steps` guided DDIM steps of each stage (batch 8): host time per
-    step without the profiler, then device busy time per step (sum of kernel
-    times in a torch.profiler trace of the same steps) and the kernels that
-    take the most of it."""
+    """Time `steps` guided DDIM steps of each stage: host time per step
+    without the profiler, then device busy time per step (sum of kernel
+    times in a torch.profiler trace of the same steps), the kernels that
+    take the most of it, and the device time inside the stem's range."""
     import torch
 
     embeds, masks = imagen.encode_text(captions)
@@ -492,14 +593,22 @@ def profile_steps(imagen, captions, steps=5):
         t0 = time.perf_counter()
         run()  # host time, without the profiler's own overhead
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-        kernels_us = traced(run)
+        handles = stem_ranges(imagen)
+        try:
+            kernels_us, spans = traced(run, ranges=("stem",))
+        finally:
+            for h in handles:
+                h.remove()
         busy_ms = sum(us for _, us in kernels_us) / 1e3 / steps
+        stem_ms = spans["stem"] / 1e3 / steps
         top = sorted(kernels_us, key=lambda kv: -kv[1])[:8]
         row = dict(stage=stage, wall_ms_per_step=wall_ms, device_busy_ms_per_step=busy_ms,
+                   stem_ms_per_step=stem_ms,
                    top=[(name[:60], us / 1e3 / steps) for name, us in top])
         out.append(row)
         log(f"  stage {stage}: wall {wall_ms:.2f} ms/step, device busy {busy_ms:.2f} ms/step "
-            f"({'not measured' if busy_ms == 0 else f'{100 * busy_ms / wall_ms:.0f}%'})")
+            f"({'not measured' if busy_ms == 0 else f'{100 * busy_ms / wall_ms:.0f}%'}), "
+            f"stem (record_function range) {stem_ms:.3f} ms/step")
         for name, ms in row["top"]:
             log(f"    {ms:8.3f} ms/step  {name}")
     return out
@@ -649,9 +758,9 @@ def check_group_norm_backward(shape, dtype, gen):
 
 
 def backward_checks(per_stage):
-    return run_checks(per_stage, (lambda *a: check_attention_backward("mqa", *a),
-                                  lambda *a: check_attention_backward("mha", *a),
-                                  check_group_norm_backward), SEED + 1)
+    return run_checks(per_stage, {"mqa_forward": lambda *a: check_attention_backward("mqa", *a),
+                                  "mha_forward": lambda *a: check_attention_backward("mha", *a),
+                                  "group_norm_forward": check_group_norm_backward}, SEED + 1)
 
 
 def _report(rows):
@@ -686,17 +795,26 @@ def _train_batch(n, size=256):
     return {k: v[0] for k, v in batches.items()}
 
 
-def ema_ulps(ema0, params, ema, decay):
-    """Largest distance, in float32 ulps, of the updated `ema` from
+def ema_ulps(ema0s, params, emas, decay):
+    """Largest distance, in float32 ulps, of each updated EMA tensor from
     ema0 * d + params * (1 - d) computed in float64, with d and 1 - d rounded
-    to float32 as make_train_step uses them (flat float32 CPU tensors)."""
+    to float32 as make_train_step uses them; tensor by tensor on the EMA's
+    device (ema0 may lie elsewhere), the ulp that of the larger of |ema0|
+    and |ema|."""
     import numpy as np
     import torch
 
     d = np.float32(decay)
-    want = ema0.double() * float(d) + params.double() * float(np.float32(1) - d)
-    ulp = np.spacing(np.maximum(np.abs(ema0.numpy()), np.abs(ema.numpy())))
-    return float(((ema.double() - want).abs() / torch.from_numpy(ulp).double()).max())
+    d_hi, d_lo = float(d), float(np.float32(1) - d)
+    worst = 0.0
+    with torch.no_grad():
+        for e0, p, e in zip(ema0s, params, emas):
+            e0 = e0.to(e.device)
+            want = e0.double() * d_hi + p.detach().double() * d_lo
+            m = torch.maximum(e0.abs(), e.abs()).float()
+            ulp = (torch.nextafter(m, torch.full_like(m, float("inf"))) - m).double()
+            worst = max(worst, float(((e.double() - want).abs() / ulp).max()))
+    return worst
 
 
 def reference_train_step():
@@ -734,7 +852,7 @@ def reference_train_step():
                              for ts in ([p.grad for p in ps], ps)])
         ema = torch.cat([e.reshape(-1).cpu() for e in state.ema_params])
         params = torch.cat([p for _, p in per_unet])
-        results[dev] = (losses.cpu(), per_unet, ema, ema_ulps(ema0, params, ema, EMA_DECAY))
+        results[dev] = (losses.cpu(), per_unet, ema, ema_ulps([ema0], [params], [ema], EMA_DECAY))
         del imagen, state
     rel = lambda a, b: float((a - b).norm() / b.norm())  # noqa: E731
     (lc, uc, ec, ulc), (lr_, ur, er, ulr) = results[DEVICE], results["cpu"]
@@ -779,9 +897,9 @@ def learn():
             failures.append(f"stage {stage} mean over 201-400 above {LEARN_LIMITS[stage]}")
         if not second[stage] < first[stage]:
             failures.append(f"stage {stage} did not improve from 1-200 to 201-400")
-    missing = [k for k in BACKWARD_INFO if launches[k] == 0]
+    missing = [k for k in [*BACKWARD_INFO, "depth_to_space_bias"] if launches[k] == 0]
     if missing:
-        failures.append(f"backward kernels never launched: {missing}")
+        failures.append(f"kernels never launched: {missing}")
     if failures:
         raise PhaseError("; ".join(failures))
     return run, launches, dict(first=first.tolist(), second=second.tolist(),
@@ -803,7 +921,7 @@ def profile_train(run, steps=5):
     t0 = time.perf_counter()
     go()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    items = traced(go)
+    items, _ = traced(go)
     busy_ms = sum(us for _, us in items) / 1e3 / steps
     log(f"  train step: wall {wall_ms:.2f} ms/step, device busy {busy_ms:.2f} ms/step "
         f"({'not measured' if busy_ms == 0 else f'{100 * busy_ms / wall_ms:.0f}%'})")
@@ -812,10 +930,270 @@ def profile_train(run, steps=5):
     return dict(wall_ms_per_step=wall_ms, device_busy_ms_per_step=busy_ms)
 
 
+# --------------------------------------------------------------------------- #
+# the stem                                                                    #
+# --------------------------------------------------------------------------- #
+# (b, h, w, cin, dim) of the stems the sampling paths run: lite base 64px and
+# SR 256px at 16 guided rows, Base 64px and Super 128px at 8
+STEM_PATH_SHAPES = {"lite base": (16, 64, 64, 3, 64), "lite SR": (16, 256, 256, 6, 32),
+                    "Base": (8, 64, 64, 3, 512), "Super": (8, 128, 128, 6, 128)}
+
+
+def _stem_inputs(shape, gen):
+    """A bf16 input and float32 kernels/biases of a 3/7/15 stem of `dim`
+    channels split as CrossEmbedLayer splits them."""
+    import torch
+
+    b, h, w, cin, dim = shape
+    dims = [dim // 2, dim // 4, dim - dim // 2 - dim // 4]
+    x = torch.randn(b, h, w, cin, generator=gen, device=DEVICE).to(torch.bfloat16)
+    ws = [torch.randn(d, cin, k, k, generator=gen, device=DEVICE) / (k * cin ** 0.5)
+          for k, d in zip((3, 7, 15), dims)]
+    bs = [torch.randn(d, generator=gen, device=DEVICE) for d in dims]
+    return x, ws, bs
+
+
+def time_stem_formulations():
+    """The stem alone, forward in bf16, at each sampling path's stem shape:
+    the reference convs, s2d-4 + kernel 8 (the path's) and s2d-2 + kernel 8;
+    each formulation within 2^-6 of the reference's largest output. A
+    measurement beside a check."""
+    import torch
+    from minimagen_tpu_torch.ops import stem_conv as sc
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
+    rows = []
+    for name, shape in STEM_PATH_SHAPES.items():
+        x, ws, bs = _stem_inputs(shape, gen)
+        forms = {"reference": lambda: sc.cross_embed_reference(x, ws, bs, 1),
+                 "s2d-4": lambda: sc.cross_embed_s2d_conv(x, ws, bs, 4),
+                 "s2d-2": lambda: sc.cross_embed_s2d_conv(x, ws, bs, 2)}
+        with torch.no_grad():
+            ref = forms["reference"]().float()
+            errs = {k: float((f().float() - ref).abs().max()) for k, f in forms.items()}
+            ms = {k: median_ms(f) for k, f in forms.items()}
+        sync()
+        lim = _limit("bfloat16", ref)
+        row = dict(stem=name, shape=list(shape), on_path=shape in STEM_SHAPES, ms=ms,
+                   max_abs_err=errs, limit=lim)
+        rows.append(row)
+        log(f"  stem {name} {shape} (on a path: {row['on_path']}): "
+            + ", ".join(f"{k} {ms[k]:.4f} ms (err {errs[k]:.2e})" for k in forms)
+            + f"; limit {lim:.2e}")
+        if any(e > lim for e in errs.values()):
+            raise PhaseError(f"stem formulations disagree at {name}")
+    return rows
+
+
+def stem_kernels(shape, calls=5):
+    """The kernels of the stem by itself (the path's dispatch, bf16, no
+    gradient) at `shape`, from a trace of `calls` calls: (name, ms per call)."""
+    import torch
+    from minimagen_tpu_torch.ops import stem_conv as sc
+
+    x, ws, bs = _stem_inputs(shape, torch.Generator(device=DEVICE).manual_seed(SEED + 3))
+
+    def go():
+        with torch.no_grad():
+            for _ in range(calls):
+                sc.cross_embed_conv(x, ws, bs, stride=1)
+        sync()
+
+    go()
+    items = sorted(traced(go)[0], key=lambda kv: -kv[1])
+    for name, us in items:
+        log(f"    {us / 1e3 / calls:8.3f} ms/call  {name[:90]}")
+    return [(name, us / 1e3 / calls) for name, us in items]
+
+
+# --------------------------------------------------------------------------- #
+# the default cascade                                                         #
+# --------------------------------------------------------------------------- #
+def default_train_batch():
+    """train.py's default batch of the synthetic set at 128px, captions
+    encoded by t5_base (the hash encoder) to at most 64 words."""
+    from minimagen_tpu_torch.training import stage_batches
+
+    batches = stage_batches(DEFAULT_TRAIN_BATCH, DEFAULT_TRAIN_BATCH, 128, DEFAULT_MAX_WORDS,
+                            "t5_base", device=DEVICE)
+    return {k: v[0] for k, v in batches.items()}
+
+
+def default_path_shapes(imagen, captions, batch):
+    """The kernel shapes of the default cascade's paths: one guided forward
+    per stage (sampling) and one forward and backward of both stage losses
+    at the training batch (gradients dropped after)."""
+    import torch
+
+    embeds, masks = imagen.encode_text(captions)
+    sampling = record_path_shapes(imagen, embeds, masks)
+    training, handles = hook_kernel_shapes(imagen)
+    try:
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        loss = sum(imagen.stage_loss(i, batch["image"], batch["encoding"], batch["mask"],
+                                     generator=gen) for i in range(imagen.num_unets))
+        loss.backward()
+        sync()
+    finally:
+        for h in handles:
+            h.remove()
+        for p in imagen.unets.parameters():
+            p.grad = None
+    return sampling, training
+
+
+def cpu_copy(imagen):
+    """The imagen with float32 CPU copies of its U-Nets (built on the meta
+    device, then given the card's weights), for _cfg_forward."""
+    import copy
+
+    import torch
+    from minimagen_tpu_torch.models.unet import UnetModel
+
+    unets = []
+    for unet in imagen.unets:
+        with torch.device("meta"):
+            u = UnetModel(unet.config, torch.float32)
+        u.load_state_dict({k: v.to("cpu", torch.float32) for k, v in unet.state_dict().items()},
+                          assign=True)
+        unets.append(u.eval())
+    out = copy.copy(imagen)
+    out.unets = torch.nn.ModuleList(unets)
+    return out
+
+
+def default_reference(captions):
+    """Guided forward of Base at 16px and Super at 32px (over a 16px
+    low-res image resized up), full width and depth, one caption (2 rows):
+    float32 on the card (kernels) against a CPU copy of the same weights
+    (plain versions), TF32 off."""
+    import torch
+    from minimagen_tpu_torch.generate import default_imagen
+    from minimagen_tpu_torch.ops.resize import resize_image_to
+
+    card = default_imagen(device=DEVICE, seed=SEED, dtype=torch.float32)
+    models = {DEVICE: card, "cpu": cpu_copy(card)}
+    embeds, masks = card.encode_text(captions)
+    embeds, masks = embeds.cpu(), masks.cpu()
+    gen = torch.Generator().manual_seed(SEED)
+    b = len(captions)
+    results = {}
+    for stage, size in enumerate((16, 32)):
+        x = torch.randn(b, size, size, 3, generator=gen)
+        low = resize_image_to(torch.rand(b, 16, 16, 3, generator=gen), size) if stage else None
+        outs = {}
+        for dev, model in models.items():
+            to = lambda t: None if t is None else t.to(dev)  # noqa: E731
+            with torch.inference_mode():
+                outs[dev] = model._cfg_forward(
+                    stage, to(x), torch.full((b,), 500, device=dev), text_embeds=to(embeds),
+                    text_mask=to(masks), lowres_cond_img=to(low),
+                    lowres_noise_times=torch.full((b,), 200, device=dev) if stage else None,
+                    cond_scale=COND_SCALE).cpu()
+        rel = float((outs[DEVICE] - outs["cpu"]).norm() / outs["cpu"].norm())
+        finite = bool(torch.isfinite(outs[DEVICE]).all())
+        results[f"stage{stage}_rel_l2"] = rel
+        log(f"  stage {stage} ({size}px): relative L2 card f32 vs cpu f32 = {rel:.3e} "
+            f"(limit {REFERENCE_LIMIT}), finite {finite}")
+        if not (finite and rel <= REFERENCE_LIMIT):
+            raise PhaseError(f"default cascade stage {stage} disagrees with the CPU reference")
+    return results
+
+
+def serve(imagen, captions):
+    """Guided DDIM-50 through both stages with the launch counts reset just
+    before; returns the launches."""
+    import numpy as np
+    import torch
+    from minimagen_tpu_torch.ops import kernels
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = imagen.sample(captions, cond_scale=COND_SCALE, sampler="ddim",
+                        sample_steps=SAMPLE_STEPS, generator=gen)
+    sync()
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    arr = out.float().cpu().numpy()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"  images {arr.shape} min {arr.min():.4f} max {arr.max():.4f} mean {arr.mean():.4f} "
+        f"std {arr.std():.4f}; {seconds:.2f} s for {len(captions)} images "
+        f"({seconds / len(captions):.3f} s/image, host clock, synchronized); "
+        f"peak memory {peak:.2f} GiB")
+    log(f"  launches: {launches}")
+    failures = []
+    if arr.shape != (len(captions), 128, 128, 3) or not np.isfinite(arr).all():
+        failures.append(f"images {arr.shape} not finite ({len(captions)}, 128, 128, 3)")
+    if not (arr.min() >= 0.0 and arr.max() <= 1.0):
+        failures.append("images outside [0, 1]")
+    missing = [k for k in KERNEL_INFO if launches[k] == 0]
+    if missing:
+        failures.append(f"forward kernels never launched: {missing}")
+    if failures:
+        raise PhaseError("; ".join(failures))
+    return launches, dict(seconds=seconds, peak_gib=peak)
+
+
+def train_default(imagen, batch, train_shapes):
+    """DEFAULT_TRAIN_STEPS steps of both stages with make_train_step (clip-50
+    Adam, EMA), the launch counts reset just before."""
+    import numpy as np
+    import torch
+    from minimagen_tpu_torch.ops import kernels
+    from minimagen_tpu_torch.training import create_train_state, make_optimizer, make_train_step
+
+    opt = make_optimizer(1e-4)
+    state = create_train_state(imagen, opt, ema=True)
+    step = make_train_step(imagen, opt, ema_decay=EMA_DECAY)
+    names = ("init_conv.conv_2.weight", "text_to_cond.weight", "final_conv.weight")
+    watched = {(i, name): p.detach().clone() for i, unet in enumerate(imagen.unets)
+               for name, p in unet.named_parameters() if name in names}
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    losses, ms = [], []
+    for i in range(DEFAULT_TRAIN_STEPS):
+        if i == DEFAULT_TRAIN_STEPS - 1:
+            ema0 = [e.to("cpu", copy=True) for e in state.ema_params]
+        t0 = time.perf_counter()
+        state, step_losses = step(state, batch, seed=SEED)
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(step_losses.float().cpu().numpy())
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ulps = ema_ulps(ema0, state.params, state.ema_params, EMA_DECAY)
+    del ema0
+    moved = {f"unet_{i}.{name}": not torch.equal(p0, imagen.unets[i].get_parameter(name).detach())
+             for (i, name), p0 in watched.items()}
+    widest = max(s[3] for counts in train_shapes for s in counts["group_norm_forward"])
+    log(f"  losses per step (base, super): {[l.tolist() for l in losses]}")
+    log(f"  host ms per step (synchronized): {[round(m, 1) for m in ms]}; peak memory "
+        f"{peak:.2f} GiB")
+    log(f"  EMA vs its definition: {ulps:.4f} ulps (limit {EMA_ULP_LIMIT}); parameters moved: "
+        f"{moved}; widest GroupNorm in the step: {widest} channels")
+    log(f"  launches: {launches}")
+    failures = []
+    if not np.isfinite(np.array(losses)).all():
+        failures.append("a loss is not finite")
+    if not all(moved.values()):
+        failures.append("a watched parameter did not move")
+    if not ulps <= EMA_ULP_LIMIT:
+        failures.append(f"EMA {ulps} ulps from its definition")
+    missing = [k for k in [*BACKWARD_INFO, "depth_to_space_bias"] if launches[k] == 0]
+    if missing:
+        failures.append(f"kernels never launched: {missing}")
+    if failures:
+        raise PhaseError("; ".join(failures))
+    return launches, dict(losses=[l.tolist() for l in losses], ms=ms, peak_gib=peak, ulps=ulps)
+
+
 def kernel_entries(rows, launches):
-    """One entry per kernel for the JSON line, at the path's heaviest bf16
-    shape (largest bound), with its launches on its main path (sampling for
-    the forward kernels, training for the backward ones)."""
+    """One entry per kernel for the JSON line, at the heaviest bf16 shape
+    checked (largest bound), with its launches summed over the runs of the
+    paths (lite sampling and learning, default serving and training), each
+    counted from 0."""
     entries = []
     for name, (source, replaces) in {**KERNEL_INFO, **BACKWARD_INFO}.items():
         bf16 = [r for r in rows if r["kernel"] == name and r["dtype"] == "bfloat16"]
@@ -911,6 +1289,8 @@ def main():
     # leaves the device numbers "not measured"; a failing launch still fails
     with phase("measure: profile guided DDIM steps of each stage"):
         profile_steps(imagen, captions)
+        log("  the lite SR stem alone (s2d-4 + kernel 8), kernels per call:")
+        stem_kernels(STEM_PATH_SHAPES["lite SR"])
 
     with phase("record the training step's kernel shapes (batch 16, both stages)"):
         train_shapes, step_launches = train_step_shapes()
@@ -929,10 +1309,58 @@ def main():
         profile_train(run)
     del run
 
-    entries = kernel_entries(rows + bwd_rows, {**launches, **{
-        k: train_launches[k] for k in BACKWARD_INFO}})
-    log(f"launches per base run {snapshots['base']}; training run {train_launches}; "
-        f"elapsed {time.time() - t_start:.1f} s")
+    # ---- the reference's default cascade ----------------------------------
+    with phase("free the lite objects; build the default cascade (Base + Super, seed 0)"):
+        import gc
+
+        from minimagen_tpu_torch.generate import default_imagen
+
+        del imagen, embeds, masks
+        gc.collect()
+        torch.cuda.empty_cache()
+        big = default_imagen(device=DEVICE, seed=SEED)
+        n_params = [sum(p.numel() for p in u.parameters()) for u in big.unets]
+        log(f"  parameters: Base {n_params[0] / 1e6:.1f}M, Super {n_params[1] / 1e6:.1f}M "
+            f"(float32 masters, bf16 compute); allocated "
+            f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+    default_captions = captions[:DEFAULT_CAPTIONS]
+    with phase("record the default cascade's kernel shapes"):
+        big_batch = default_train_batch()
+        big_sampling, big_training = default_path_shapes(big, default_captions, big_batch)
+        for label, per in (("sampling", big_sampling), ("training", big_training)):
+            for stage, counts in enumerate(per):
+                log(f"  {label} stage {stage}: " + ", ".join(
+                    f"{name} {len(c)} shapes {sum(c.values())} launches/step"
+                    for name, c in counts.items()))
+    with phase("kernels vs plain versions at the default cascade's shapes"):
+        big_rows = kernel_checks(big_sampling + big_training, extra_mha_j=())
+        big_bwd_rows = backward_checks(big_training)
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
+        log("  attention at batch * heads = 8193 * 8 = 65544:")
+        _report([check_attention_backward(kind, (8193, 8, 16, 17), torch.bfloat16, gen)
+                 for kind in ("mqa", "mha")])
+        log("  the stem alone, forward bf16, three formulations:")
+        time_stem_formulations()
+    with phase("reference: Base 16px + Super 32px, card float32 vs cpu float32"):
+        default_reference(default_captions[:1])
+    with phase(f"serve the default cascade: {DEFAULT_CAPTIONS} captions, DDIM-{SAMPLE_STEPS}, "
+               f"cond_scale {COND_SCALE}, 64 -> 128"):
+        serve_launches, _ = serve(big, default_captions)
+    with phase("measure: profile guided DDIM steps of the default cascade"):
+        profile_steps(big, default_captions)
+    with phase(f"train the default cascade: {DEFAULT_TRAIN_STEPS} steps, batch "
+               f"{DEFAULT_TRAIN_BATCH}, both stages"):
+        big_train_launches, _ = train_default(big, big_batch, big_training)
+    del big
+
+    runs = {"lite sampling": launches, "lite learning": train_launches,
+            "default serving": serve_launches, "default training": big_train_launches}
+    for name, counts in runs.items():
+        log(f"launches, {name}: {counts}")
+    totals = {k: sum(counts[k] for counts in runs.values()) for k in launches}
+    # the 65544-pair attention check is not a path shape: logged above, not in the line
+    entries = kernel_entries(rows + bwd_rows + big_rows + big_bwd_rows, totals)
+    log(f"launches per base run {snapshots['base']}; elapsed {time.time() - t_start:.1f} s")
     log(json.dumps({"kernels": entries}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

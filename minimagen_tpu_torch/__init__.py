@@ -14,12 +14,18 @@ What is ported so far:
 - training on one device: the per-stage loss (l1/l2/huber, min-SNR, offset
   noise), clip-50 Adam with a float32 EMA, the synthetic captioned-shapes
   set, and ``training.train_lite``, the lite cascade's recipe (with a
-  float32 Adam first moment where the committed run used bf16).
+  float32 Adam first moment where the committed run used bf16);
+- the reference's default cascade (``generate.default_imagen``: the Base and
+  Super presets at 64/128px, conditioned by t5_base through the hash text
+  encoder) from a seeded init, sampled and trained like the lite one; every
+  stem runs as the space-to-depth convolution (``ops/stem_conv.py``).
 
-The Pallas kernels on those paths (multi-query and multi-head attention,
-forward and backward, with an optional mask bias; fused GroupNorm forward and
-backward) are CUDA C++ kernels under ``csrc/``, built with ``nvcc`` at first
-use and bound with ``ctypes`` (``ops/kernels.py``).
+Every Pallas kernel of the JAX package (multi-query and multi-head
+attention, forward and backward, with an optional mask bias; fused GroupNorm
+forward and backward; depth-to-space with the stem bias) is a CUDA C++ kernel
+under ``csrc/``, built with ``nvcc`` at first use and bound with ``ctypes``
+(``ops/kernels.py``). ``ab_times.py`` times them, and guided lite steps,
+for two checkouts on one card.
 
 Activations are NHWC at every public function, as in the JAX package.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.

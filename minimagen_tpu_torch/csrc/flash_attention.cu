@@ -61,6 +61,15 @@ namespace {
 constexpr int kHeadDim = 64;  // ATTN_DIM_HEAD of the U-Net
 constexpr int kBlockQ = 64;   // float32 forward: query rows (= threads) per block
 constexpr int kBlockK = 32;   // float32 forward: keys per shared-memory tile
+constexpr int kMaxGridYZ = 65535;  // the most blocks along grid y or z
+
+// Every launch's grid is (tiles, heads, batch): x walks the query rows or
+// keys of one (sample, head), y the heads and z the samples, so batch and
+// heads may each reach 65535 (batch * heads past 65535 included) and the
+// blocks of one (sample, head) still run next to each other.
+__device__ __forceinline__ int sample_head() {
+  return static_cast<int>(blockIdx.z * gridDim.y + blockIdx.y);
+}
 
 // K/V of (batch * heads + head) bh sit at index bh / kv_group: kv_group is
 // the head count for multi-query (one K/V per sample), 1 for multi-head.
@@ -79,7 +88,7 @@ __global__ void __launch_bounds__(kBlockQ)
   __shared__ float vs[kBlockK][kHeadDim];
   __shared__ float bs[kBlockK];
 
-  const int bh = blockIdx.y;  // batch * heads + head
+  const int bh = sample_head();
   const int row = blockIdx.x * kBlockQ + threadIdx.x;
   const bool active = row < n;
   const size_t kv_base = static_cast<size_t>(bh / kv_group) * j * kHeadDim;
@@ -168,7 +177,7 @@ __global__ void __launch_bounds__(kDqRows)
   __shared__ float vs[kDqKeys][kHeadDim];
   __shared__ float bs[kDqKeys];
 
-  const int bh = blockIdx.y;
+  const int bh = sample_head();
   const int q0 = blockIdx.x * kDqRows;
   const int row = q0 + threadIdx.x;
   const bool active = row < n;
@@ -242,7 +251,7 @@ __global__ void __launch_bounds__(kKvKeys)
   __shared__ float lse_s[kKvRows];
   __shared__ float d_s[kKvRows];
 
-  const int bh = blockIdx.y;
+  const int bh = sample_head();
   const int k0 = blockIdx.x * kKvKeys;
   const int key = k0 + threadIdx.x;
   const size_t kv_base = static_cast<size_t>(bh / kv_group) * j * kHeadDim;
@@ -417,7 +426,7 @@ __global__ void __launch_bounds__(kTcThreads)
   __shared__ __align__(16) Tile vs[kTcKeys];
   __shared__ float bs[kTcKeys];
 
-  const int bh = blockIdx.y;
+  const int bh = sample_head();
   const int q0 = blockIdx.x * kTcRows;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;        // accumulator row / column pair
@@ -524,7 +533,7 @@ __global__ void __launch_bounds__(kTcThreads)
   __shared__ float lse_s[kTcRows];
   __shared__ float d_s[kTcRows];
 
-  const int bh = blockIdx.y;
+  const int bh = sample_head();
   const int q0 = blockIdx.x * kTcRows;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -629,7 +638,7 @@ __global__ void __launch_bounds__(kTcThreads)
   __shared__ float lse_s[kTcRows];
   __shared__ float d_s[kTcRows];
 
-  const int bh = blockIdx.y;
+  const int bh = sample_head();
   const int k0 = blockIdx.x * kTcKeys;
   const int kt = min(kTcKeys, j - k0);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -712,7 +721,7 @@ __global__ void kv_reduce_kernel(const float* __restrict__ dk_acc,
 
 bool bad_sizes(int batch, int heads, int n, int j, int head_dim) {
   return head_dim != kHeadDim || batch <= 0 || heads <= 0 || n <= 0 || j <= 0 ||
-         batch * heads > 65535;
+         batch > kMaxGridYZ || heads > kMaxGridYZ;
 }
 
 int launch_forward(const void* q, const void* k, const void* v, const float* bias, void* o,
@@ -721,12 +730,12 @@ int launch_forward(const void* q, const void* k, const void* v, const float* bia
   if (bad_sizes(batch, heads, n, j, head_dim)) return static_cast<int>(cudaErrorInvalidValue);
   const int kv_group = shared_kv ? heads : 1;
   if (dtype == mmt::kFloat32) {
-    const dim3 grid((n + kBlockQ - 1) / kBlockQ, batch * heads);
+    const dim3 grid((n + kBlockQ - 1) / kBlockQ, heads, batch);
     attention_fwd_kernel<<<grid, kBlockQ, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), bias, static_cast<float*>(o), lse, kv_group, heads, n, j);
   } else if (dtype == mmt::kBFloat16) {
-    const dim3 grid((n + kTcRows - 1) / kTcRows, batch * heads);
+    const dim3 grid((n + kTcRows - 1) / kTcRows, heads, batch);
     attention_fwd_bf16_kernel<<<grid, kTcThreads, 0, stream>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), bias, static_cast<__nv_bfloat16*>(o), lse,
@@ -764,10 +773,10 @@ int launch_backward(const void* q, const void* k, const void* v, const float* bi
     const float* kf = static_cast<const float*>(k);
     const float* vf = static_cast<const float*>(v);
     const float* dof = static_cast<const float*>(dout);
-    attention_bwd_dq_kernel<<<dim3((n + kDqRows - 1) / kDqRows, bh), kDqRows, 0, stream>>>(
+    attention_bwd_dq_kernel<<<dim3((n + kDqRows - 1) / kDqRows, heads, batch), kDqRows, 0, stream>>>(
         qf, kf, vf, bias, static_cast<const float*>(o), dof, lse, static_cast<float*>(dq), delta,
         kv_group, heads, n, j);
-    attention_bwd_dkdv_kernel<<<dim3((j + kKvKeys - 1) / kKvKeys, bh), kKvKeys, 0, stream>>>(
+    attention_bwd_dkdv_kernel<<<dim3((j + kKvKeys - 1) / kKvKeys, heads, batch), kKvKeys, 0, stream>>>(
         qf, kf, vf, bias, dof, lse, delta, dk_acc, dv_acc, kv_group, heads, n, j);
     launch_reduce<float>(dk_acc, dv_acc, dk, dv, kv_group, bh / kv_group, j, stream);
   } else if (dtype == mmt::kBFloat16) {
@@ -775,11 +784,11 @@ int launch_backward(const void* q, const void* k, const void* v, const float* bi
     const __nv_bfloat16* kb = static_cast<const __nv_bfloat16*>(k);
     const __nv_bfloat16* vb = static_cast<const __nv_bfloat16*>(v);
     const __nv_bfloat16* dob = static_cast<const __nv_bfloat16*>(dout);
-    attention_bwd_dq_bf16_kernel<<<dim3((n + kTcRows - 1) / kTcRows, bh), kTcThreads, 0,
+    attention_bwd_dq_bf16_kernel<<<dim3((n + kTcRows - 1) / kTcRows, heads, batch), kTcThreads, 0,
                                    stream>>>(
         qb, kb, vb, bias, static_cast<const __nv_bfloat16*>(o), dob, lse,
         static_cast<__nv_bfloat16*>(dq), delta, kv_group, heads, n, j);
-    attention_bwd_dkdv_bf16_kernel<<<dim3((j + kTcKeys - 1) / kTcKeys, bh), kTcThreads, 0,
+    attention_bwd_dkdv_bf16_kernel<<<dim3((j + kTcKeys - 1) / kTcKeys, heads, batch), kTcThreads, 0,
                                      stream>>>(qb, kb, vb, bias, dob, lse, delta, dk_acc, dv_acc,
                                                kv_group, heads, n, j);
     launch_reduce<__nv_bfloat16>(dk_acc, dv_acc, dk, dv, kv_group, bh / kv_group, j, stream);

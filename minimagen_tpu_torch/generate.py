@@ -1,10 +1,18 @@
-"""Loading the committed lite cascade (counterpart of the JAX package's
-``generate.py`` loaders and ``__graft_entry__._lite_imagen``).
+"""Building cascades (counterpart of the JAX package's ``generate.py``
+loaders, ``__graft_entry__._lite_imagen`` and the model set-up of
+``train.py``).
 
 ``assets/lite_ckpt`` holds the bf16 EMA weights of a 64px base U-Net and a
 256px super-resolution U-Net trained with the committed tiny T5 encoder
 (``assets/t5_tiny``); ``meta.json`` names the model, the encoder and the
-caption length it was trained with.
+caption length it was trained with (:func:`load_lite`).
+
+:func:`default_imagen` builds the cascade ``train.py`` trains: with no
+parameters directory its default, the ``Base`` (64px) and ``Super`` (128px)
+presets, 1000 timesteps, ``cond_drop_prob`` 0.15 and ``t5_base`` (the hash
+text encoder, offline); with one, the cascade that directory's JSON files
+describe (``train.py --PARAMETERS``). Its state is a fresh flax-style init
+from a seed, made on the target device.
 """
 from __future__ import annotations
 
@@ -17,7 +25,7 @@ import torch
 from .checkpoint import load_unet_checkpoint
 from .models.imagen import Imagen
 from .models.t5 import REPO_ROOT, TextEncoder
-from .models.unet import UnetConfig
+from .models.unet import Base, Super, UnetConfig
 
 LITE_CKPT_DIR = os.path.join(REPO_ROOT, "assets", "lite_ckpt")
 
@@ -65,3 +73,32 @@ def load_lite(device="cuda", ckpt_dir: str = LITE_CKPT_DIR,
     imagen.text_encoder = TextEncoder(config["encoder"], device)
     imagen.text_max_length = config["max_length"]
     return imagen
+
+
+def default_imagen(params_dir: Optional[str] = None, device="cuda", *, seed: int = 0,
+                   dtype: torch.dtype = torch.bfloat16,
+                   param_dtype: Optional[torch.dtype] = torch.float32) -> Imagen:
+    """``train.py``'s cascade without a restart directory: from the JSON files
+    of `params_dir` when given (``--PARAMETERS``), else ``Base`` and
+    ``Super`` at 64/128px (``--IMG_SIDE_LEN`` 128), 1000 timesteps,
+    ``cond_drop_prob`` 0.15 and ``t5_base``. Fresh flax-style weights drawn on
+    `device` by torch's generator seeded with `seed` (the caller's generator
+    state is restored), computing in `dtype` with parameters in
+    `param_dtype`."""
+    # training imports this module for the lite cascade
+    from .training import get_default_args, get_model_params  # noqa: PLC0415
+
+    if params_dir is None:
+        unets = [get_default_args(Base), get_default_args(Super)]
+        imagen_params = dict(image_sizes=(64, 128), timesteps=1000, cond_drop_prob=0.15,
+                             text_encoder_name="t5_base")
+    else:
+        unets, imagen_params = get_model_params(params_dir)
+        imagen_params = {k: v for k, v in imagen_params.items() if k != "unets"}
+        if imagen_params.pop("only_train_unet_number", None) is not None:
+            raise NotImplementedError("only_train_unet_number is not ported")
+    dev = torch.device(device)
+    with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []), dev:
+        torch.manual_seed(seed)
+        return Imagen(unets=[UnetConfig.from_dict(p) for p in unets], **imagen_params,
+                      dtype=dtype, param_dtype=param_dtype, device=dev)

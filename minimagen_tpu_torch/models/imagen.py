@@ -97,7 +97,7 @@ class Imagen:
                  text_embed_dim: Optional[int] = None, channels: int = 3,
                  timesteps: Union[int, Sequence[int]] = 1000, cond_drop_prob: float = 0.1,
                  loss_type: str = "l2", lowres_sample_noise_level: float = 0.2,
-                 dynamic_thresholding_percentile: float = 0.9,
+                 dynamic_thresholding_percentile: float = 0.9, auto_normalize_img: bool = True,
                  min_snr_gamma: Optional[float] = None, offset_noise_scale: float = 0.0,
                  dtype: torch.dtype = torch.float32, param_dtype: Optional[torch.dtype] = None,
                  device="cuda"):
@@ -130,6 +130,12 @@ class Imagen:
         self.cond_drop_prob = cond_drop_prob
         self.can_classifier_guidance = cond_drop_prob > 0.0
         self.dynamic_thresholding_percentile = dynamic_thresholding_percentile
+        # images in [0, 1] are mapped to the U-Nets' [-1, 1] and back, unless
+        # the caller's images are in [-1, 1] already
+        identity = lambda t: t  # noqa: E731
+        self.normalize_img = normalize_neg_one_to_one if auto_normalize_img else identity
+        self.unnormalize_img = unnormalize_zero_to_one if auto_normalize_img else identity
+        self.input_image_range = (0.0 if auto_normalize_img else -1.0, 1.0)
         self.text_encoder: Optional[TextEncoder] = None
         self.text_max_length = MAX_LENGTH
 
@@ -217,7 +223,7 @@ class Imagen:
             raise NotImplementedError(f"sampler {sampler!r} is not ported yet")
         scheduler = self.noise_schedulers[stage]
         b = text_embeds.shape[0]
-        lowres = (normalize_neg_one_to_one(lowres_cond_img)
+        lowres = (self.normalize_img(lowres_cond_img)
                   if self.unet_configs[stage].lowres_cond else None)
         kw = dict(text_embeds=text_embeds, text_mask=text_mask, lowres_cond_img=lowres,
                   lowres_noise_times=lowres_noise_times, cond_scale=cond_scale,
@@ -242,7 +248,7 @@ class Imagen:
                 t = full(t_scalar)
                 x0 = self._predict_x_start(stage, img, t, **kw)
                 img = scheduler.ddim_step(img, x0, t, full(tp_scalar))
-        return unnormalize_zero_to_one(img.clamp(-1.0, 1.0))
+        return self.unnormalize_img(img.clamp(-1.0, 1.0))
 
     def _truncation_start(self, stage: int, start_noise_level: float, sampler: str,
                           sample_steps: Optional[int]) -> int:
@@ -267,7 +273,7 @@ class Imagen:
         upsampled = resize_image_to(images, self.image_sizes[stage])
         b = upsampled.shape[0]
         return self.noise_schedulers[stage].q_sample(
-            x_start=normalize_neg_one_to_one(upsampled),
+            x_start=self.normalize_img(upsampled),
             t=torch.full((b,), start_at, dtype=torch.int64, device=self.device), noise=noise)
 
     def _lowres_condition(self, stage: int, images, noise_level: float, draw: NoiseFn):
@@ -387,11 +393,11 @@ class Imagen:
             noise = draw(x_start.shape)
             if self.offset_noise_scale > 0.0:
                 noise = noise + self.offset_noise_scale * draw((b, 1, 1, x_start.shape[-1]))
-        x_start = normalize_neg_one_to_one(x_start)
+        x_start = self.normalize_img(x_start)
         x_noisy = scheduler.q_sample(x_start=x_start, t=times, noise=noise)
         lowres_noisy = None
         if lowres_cond_img is not None:
-            lowres_cond_img = normalize_neg_one_to_one(lowres_cond_img)
+            lowres_cond_img = self.normalize_img(lowres_cond_img)
             lowres_aug_times = default(lowres_aug_times, times)
             if lowres_noise is None:
                 lowres_noise = draw(lowres_cond_img.shape)
@@ -430,7 +436,7 @@ class Imagen:
             times = self.noise_schedulers[stage].sample_random_times(b, generator)
         lowres = None
         if stage > 0:
-            clamp = (0.0, 1.0)
+            clamp = self.input_image_range
             lowres = resize_image_to(images, self.image_sizes[stage - 1], clamp_range=clamp)
             lowres = resize_image_to(lowres, size, clamp_range=clamp)
             if lowres_aug_times is None:

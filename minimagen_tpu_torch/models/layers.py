@@ -26,7 +26,7 @@ from torch import nn
 
 from ..ops.attention import multi_head_attention, multi_query_attention
 from ..ops.group_norm import group_norm_silu
-from ..ops.stem_conv import cross_embed_reference
+from ..ops.stem_conv import cross_embed_conv
 
 ATTN_DIM_HEAD = 64
 NUM_TIME_TOKENS = 2
@@ -331,7 +331,8 @@ class TransformerBlock(nn.Module):
 
 class CrossEmbedLayer(nn.Module):
     """Inception-style stem: parallel convs of several kernel sizes with
-    geometrically split channel counts, concatenated."""
+    geometrically split channel counts, concatenated; a stride-1 stem runs
+    as one space-to-depth conv (``ops/stem_conv.py``)."""
 
     def __init__(self, dim_in: int, kernel_sizes: Sequence[int], dim_out: Optional[int] = None,
                  stride: int = 2):
@@ -350,8 +351,8 @@ class CrossEmbedLayer(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         convs = [getattr(self, f"conv_{i}") for i in range(self.num_convs)]
-        return cross_embed_reference(x, [c.weight for c in convs], [c.bias for c in convs],
-                                     self.stride)
+        return cross_embed_conv(x, [c.weight for c in convs], [c.bias for c in convs],
+                                stride=self.stride)
 
 
 class Downsample(nn.Module):

@@ -8,13 +8,19 @@ bucketed bidirectional relative-position bias computed in layer 0 and shared
 by every layer) and an RMS-normed ReLU feed-forward, then a final RMS norm.
 Its weights are read from the committed ``flax_model.msgpack`` by the port's
 own msgpack reader (``checkpoint.py``). Only ``local:`` registry entries (the
-committed ``t5_tiny``) can be loaded: the others need a download.
+committed ``t5_tiny``) are loaded as T5 encoders: the others need a download,
+and for them :class:`TextEncoder` takes the JAX package's own offline
+behaviour, its deterministic hash encoder (:func:`_fallback_encode`, copied
+from ``minimagen_tpu/models/t5.py:176-199``), warning once per name as it
+does. Its encodings have the real encoder's shapes and masks, not its
+meaning.
 """
 from __future__ import annotations
 
 import hashlib
 import json
 import os
+import warnings
 from typing import List, Tuple
 
 import numpy as np
@@ -42,9 +48,38 @@ T5_VERSIONS = {
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
+_FALLBACK_WARNED = set()
+
+
 def get_encoded_dim(name: str) -> int:
     """Encoding dimensionality of a T5 variant."""
     return T5_VERSIONS[name]["dim"]
+
+
+def _hash_token_embedding(token: str, dim: int) -> np.ndarray:
+    """Stable pseudo-embedding of a token: a standard normal vector seeded by
+    a sha256 of the token text."""
+    digest = hashlib.sha256(token.encode("utf-8")).digest()
+    rng = np.random.default_rng(int.from_bytes(digest[:8], "little"))
+    return rng.standard_normal(dim).astype(np.float32)
+
+
+def _fallback_encode(texts: List[str], name: str, max_length: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The hash encoder: per word, its embedding plus 0.1 of its position's,
+    over sqrt(1.01); (encodings (b, L, dim) float32, mask (b, L) bool), L the
+    longest caption's word count (at least 1) after truncation."""
+    dim = get_encoded_dim(name)
+    tokenized = [t.lower().split()[:max_length] for t in texts]
+    longest = max(max((len(t) for t in tokenized), default=1), 1)
+    enc = np.zeros((len(texts), longest, dim), dtype=np.float32)
+    mask = np.zeros((len(texts), longest), dtype=bool)
+    for i, toks in enumerate(tokenized):
+        for j, tok in enumerate(toks):
+            emb = _hash_token_embedding(tok, dim)
+            pos = _hash_token_embedding(f"<pos{j}>", dim)
+            enc[i, j] = (emb + 0.1 * pos) / np.sqrt(1.01)
+            mask[i, j] = True
+    return enc, mask
 
 
 class WordTokenizer:
@@ -200,20 +235,25 @@ class T5Encoder(nn.Module):
 
 
 class TextEncoder:
-    """A tokenizer and a T5 encoder on one device."""
+    """A tokenizer and a T5 encoder on one device; for a registry name that
+    is not ``local:`` (its weights need a download), the hash encoder."""
 
     def __init__(self, name: str = "t5_tiny", device="cuda"):
         from ..checkpoint import read_msgpack  # noqa: PLC0415 (checkpoint imports models)
 
+        self.name, self.device = name, torch.device(device)
         handle = T5_VERSIONS[name]["handle"]
+        self.model = None
         if not handle.startswith("local:"):
-            raise ValueError(f"T5 variant {name!r} needs a download; only local encoders "
-                             f"({[k for k, v in T5_VERSIONS.items() if v['handle'].startswith('local:')]}) "
-                             "are ported")
+            if name not in _FALLBACK_WARNED:
+                _FALLBACK_WARNED.add(name)
+                warnings.warn(f"T5 checkpoint '{handle}' is not in the repository: using the "
+                              "deterministic hash text encoder. Shapes and masks match the real "
+                              "encoder; semantic quality does not.", stacklevel=2)
+            return
         path = os.path.join(REPO_ROOT, handle[len("local:"):])
         with open(os.path.join(path, "config.json")) as f:
             cfg = json.load(f)
-        self.name, self.device = name, torch.device(device)
         self.tokenizer = WordTokenizer(cfg["vocab_size"])
         self.model = T5Encoder(cfg)
         self.model.load_flax_params(read_msgpack(os.path.join(path, "flax_model.msgpack")))
@@ -222,6 +262,10 @@ class TextEncoder:
     @torch.inference_mode()
     def encode(self, texts: List[str], max_length: int = MAX_LENGTH) -> Tuple[torch.Tensor, torch.Tensor]:
         """(encodings (b, L, dim) float32 with padded rows zeroed, mask (b, L) bool)."""
+        if self.model is None:
+            enc, mask = _fallback_encode(texts, self.name, max_length)
+            return (torch.as_tensor(enc, device=self.device),
+                    torch.as_tensor(mask, device=self.device))
         ids, mask = self.tokenizer.encode(texts, max_length)
         ids = torch.as_tensor(ids, device=self.device)
         mask = torch.as_tensor(mask, device=self.device)

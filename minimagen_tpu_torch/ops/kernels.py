@@ -47,6 +47,7 @@ SIGNATURES = {
                                ctypes.c_float, _I, _I, _P],
     "mmt_group_norm_backward": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _I, _P],
+    "mmt_depth_to_space_bias": [_P, _P, _P] + [_I] * 6 + [_P],  # y2 bias out, b h w f c dtype
 }
 # helpers that launch nothing: name -> argtypes (return int)
 QUERIES = {"mmt_group_norm_scratch_floats": [_I, _I, _I, _I],
@@ -55,7 +56,7 @@ QUERIES = {"mmt_group_norm_scratch_floats": [_I, _I, _I, _I],
 # kernel name -> launches since the last reset_launch_counts()
 LAUNCHES: Dict[str, int] = {name: 0 for name in (
     "mqa_forward", "mha_forward", "group_norm_forward",
-    "mqa_backward", "mha_backward", "group_norm_backward")}
+    "mqa_backward", "mha_backward", "group_norm_backward", "depth_to_space_bias")}
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

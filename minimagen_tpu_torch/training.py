@@ -4,9 +4,8 @@ and of ``examples/train_flagship_tpu.py --model lite``).
 - :func:`make_optimizer`: global-norm clipping at 50, then Adam (eps 1e-8),
   as the JAX package's optax chain. ``torch.optim.Adam``'s update is optax
   ``adam``'s arithmetic (bias corrections folded into the step size and the
-  denominator); ``clip_grad_norm_`` scales by ``50 / (norm + 1e-6)`` where
-  optax's ``clip_by_global_norm`` scales by ``50 / norm``: that 1e-6 is the
-  only difference.
+  denominator); the clip scales every gradient by ``min(1, 50 / norm)``, the
+  norm taken in float32 over all of them, as optax's ``clip_by_global_norm``.
 - :class:`TrainState` and :func:`create_train_state`: the step counter, the
   float32 master parameters of every U-Net, the optimizer and, optionally, an
   exponential moving average of the parameters held as a real float32 copy.
@@ -14,6 +13,10 @@ and of ``examples/train_flagship_tpu.py --model lite``).
   backward pass, clips, steps Adam and updates the EMA. Its random draws come
   from a generator seeded by the caller's seed with the global step folded
   in, so a run repeats exactly.
+- :func:`get_model_params` and :func:`get_default_args`: the U-Net and
+  Imagen parameters of a ``parameters/`` directory and of a preset
+  (``minimagen_tpu/training.py:241-275``); ``generate.default_imagen``
+  builds a cascade from them.
 - :func:`train_lite`: the lite cascade trained from a fresh flax-style init
   on the synthetic set with the committed run's recipe (``assets/lite_ckpt/
   meta.json``: its held-out combos, 512 items, batch 16, lr 1e-4, EMA 0.9995)
@@ -25,12 +28,14 @@ accumulation (``optax.MultiSteps``) and a bf16 first moment.
 """
 from __future__ import annotations
 
+import dataclasses
 import hashlib
+import inspect
 import json
 import os
 import time
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -39,6 +44,7 @@ from .data.collate import MinimagenCollator
 from .data.dataset import SyntheticCaptionedImages
 from .generate import LITE_CKPT_DIR, lite_imagen
 from .models.imagen import Imagen
+from .models.unet import UnetConfig
 
 GRAD_CLIP_NORM = 50.0
 DATA_SEED = 42  # the seed train_lite's steps fold their step into
@@ -56,9 +62,16 @@ class ClippedAdam:
         return torch.optim.Adam(params, lr=self.lr, betas=(0.9, 0.999), eps=1e-8)
 
     def clip(self, params: Sequence[torch.nn.Parameter]) -> torch.Tensor:
-        """Scale the gradients to a global norm of at most GRAD_CLIP_NORM;
-        returns the norm before clipping."""
-        return torch.nn.utils.clip_grad_norm_(params, GRAD_CLIP_NORM)
+        """Scale the gradients by min(1, GRAD_CLIP_NORM / norm), the global
+        norm in float32 (optax's ``clip_by_global_norm``, without a host
+        sync); returns the norm before clipping."""
+        grads = [p.grad for p in params if p.grad is not None]
+        norm = torch.linalg.vector_norm(torch.stack(
+            [n.float() for n in torch._foreach_norm(grads)]))
+        scale = (GRAD_CLIP_NORM / norm).clamp(max=1.0)
+        for dtype in {g.dtype for g in grads}:
+            torch._foreach_mul_([g for g in grads if g.dtype == dtype], scale.to(dtype))
+        return norm
 
 
 def make_optimizer(lr: float) -> ClippedAdam:
@@ -190,6 +203,37 @@ def train_lite(steps: int, batch: int = 16, *, items: int = 512, seed: int = 0,
     ms = (time.perf_counter() - t0) * 1e3 / max(steps, 1)
     return LiteRun(losses=torch.stack(losses).float().cpu().numpy(), host_ms_per_step=ms,
                    imagen=imagen, state=state, step_fn=step_fn, batches=stacked)
+
+
+def get_model_params(parameters_dir: str) -> Tuple[List[Dict[str, Any]], Dict[str, Any]]:
+    """The U-Net parameter dicts (``unet_<i>_*.json``, in i order) and the
+    Imagen parameters (``imagen*.json``) of a parameters directory."""
+    im_params = None
+    unets_params: List[str] = []
+    for file in os.listdir(parameters_dir):
+        if file.startswith("imagen"):
+            im_params = file
+        elif file.startswith("unet_"):
+            unets_params.append(file)
+    unets_params = sorted(unets_params, key=lambda x: int(x.split("_")[1]))
+    loaded = []
+    for name in unets_params:
+        with open(os.path.join(parameters_dir, name)) as f:
+            loaded.append(json.load(f))
+    with open(os.path.join(parameters_dir, im_params)) as f:
+        return loaded, json.load(f)
+
+
+def get_default_args(obj) -> Dict[str, Any]:
+    """The default arguments of a callable or config class; a preset
+    (``Base``, ``Super``, ...) merges its ``defaults`` over UnetConfig's."""
+    if inspect.isclass(obj) and issubclass(obj, UnetConfig):
+        base = {f.name: f.default for f in dataclasses.fields(UnetConfig)
+                if f.default is not dataclasses.MISSING}
+        return {**base, **obj.defaults} if obj is not UnetConfig else base
+    signature = inspect.signature(obj.__init__ if inspect.isclass(obj) else obj)
+    return {k: v.default for k, v in signature.parameters.items()
+            if v.default is not inspect.Parameter.empty}
 
 
 def window_means(losses: np.ndarray, width: int = 200) -> List[List[float]]:

@@ -18,6 +18,7 @@ import torch
 from minimagen_tpu_torch.ops import flash_attention as tflash
 from minimagen_tpu_torch.ops import group_norm as tgn
 from minimagen_tpu_torch.ops import kernels
+from minimagen_tpu_torch.ops import stem_conv as tstem
 
 
 def _t(a):
@@ -55,6 +56,15 @@ def test_wrappers_use_plain_versions_on_cpu_and_do_not_count():
     assert all(n == 0 for n in kernels.LAUNCHES.values())
 
 
+def test_depth_to_space_bias_uses_plain_version_on_cpu():
+    y2 = torch.randn(2, 4, 4, 4 * 8, generator=torch.Generator().manual_seed(0))
+    bias = torch.randn(8, generator=torch.Generator().manual_seed(1))
+    kernels.reset_launch_counts()
+    assert torch.equal(tstem.depth_to_space_bias(y2, bias, 2),
+                       tstem.depth_to_space_bias_plain(y2, bias, 2))
+    assert kernels.LAUNCHES["depth_to_space_bias"] == 0
+
+
 def test_wrapper_checks_run_before_any_build():
     """A bad call raises ValueError from the wrapper's checks; this one
     also shows the GN wrapper rejects indivisible channels."""
@@ -69,7 +79,7 @@ def test_nvcc_command_builds_all_sources_for_sm90a(monkeypatch):
     assert "-gencode arch=compute_90a,code=sm_90a" in joined
     assert "-shared" in cmd and "-fPIC" in cmd and cmd[cmd.index("-o") + 1] == "out.so"
     cu = sorted(os.path.basename(p) for p in cmd if p.endswith(".cu"))
-    assert cu == ["flash_attention.cu", "group_norm.cu"]
+    assert cu == ["depth_to_space.cu", "flash_attention.cu", "group_norm.cu"]
     assert not any(a.startswith("-I") for a in cmd)  # no PyTorch headers: plain C interface
     for src in kernels.sources():
         assert "torch/" not in open(src).read(), src
@@ -253,3 +263,73 @@ def test_group_norm_backward_kernel_matches_plain_on_card(cuda, dtype, shape, wi
             continue
         err = float((a.float() - r.float()).abs().max())
         assert err <= _tol(dtype, r.float()), (name, err)
+
+
+# --------------------------------------------------------------------------- #
+# kernel 8 and the wide shapes of the Base/Super cascade (need the card)       #
+# --------------------------------------------------------------------------- #
+# (y2 shape, f): the s2d-4 stem outputs of the lite base (64px, dim 64) and
+# SR (256px, dim 32) stems at 16 guided rows, and of Base (64px, dim 512) and
+# Super (128px, dim 128) at 8; plus an s2d-2 shape and a channel count that
+# is not a multiple of a 16-byte vector
+D2S_CASES = [((16, 16, 16, 1024), 4), ((16, 64, 64, 512), 4), ((8, 16, 16, 8192), 4),
+             ((8, 32, 32, 2048), 4), ((2, 32, 32, 4 * 64), 2), ((2, 8, 8, 16 * 6), 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,f", D2S_CASES)
+def test_depth_to_space_bias_kernel_is_bit_equal_on_card(cuda, dtype, shape, f):
+    """Kernel 8 against its plain version: the same bits (one float32 add of
+    two values of the type, rounded once)."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    y2 = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    bias = torch.randn(shape[-1] // (f * f), generator=gen, device=cuda).to(dtype)
+    kernels.reset_launch_counts()
+    out = tstem.depth_to_space_bias(y2, bias, f)
+    ref = tstem.depth_to_space_bias_plain(y2, bias, f)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["depth_to_space_bias"] == 1
+    assert out.dtype == ref.dtype and torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 16, 16, 1536), (2, 8, 8, 2048), (2, 16, 16, 2560),
+                                   (2, 8, 8, 3584)])
+def test_group_norm_kernels_above_1024_channels_on_card(cuda, dtype, shape):
+    """Forward and backward at Base's widest GroupNorms (channels split over
+    blocks), with scale-shift and SiLU; limits as above; two runs give the
+    same bits."""
+    x, gamma, beta, ss = _gn_inputs(*shape)
+    scale, shift = (_t(s).to(cuda, dtype) for s in ss)
+    x, gamma, beta = _t(x).to(cuda, dtype), _t(gamma).to(cuda, dtype), _t(beta).to(cuda, dtype)
+    g = _t(np.random.default_rng(9).normal(size=shape).astype(np.float32)).to(cuda, dtype)
+    kw = dict(groups=8, silu=True)
+    y, mean, rstd = tgn.group_norm_forward_kernel(x, gamma, beta, scale, shift, eps=1e-5, **kw)
+    ref = tgn.group_norm_silu_plain(x, gamma, beta, scale_shift=(scale, shift), **kw)
+    got = tgn.group_norm_backward_kernel(x, gamma, beta, scale, shift, mean, rstd, g, **kw)
+    again = tgn.group_norm_backward_kernel(x, gamma, beta, scale, shift, mean, rstd, g, **kw)
+    want = tgn.group_norm_silu_bwd_plain(x, gamma, beta, scale, shift, mean, rstd, g, **kw)
+    torch.cuda.synchronize()
+    assert float((y.float() - ref.float()).abs().max()) <= _tol(dtype, ref.float())
+    for name, a, r, b in zip(("dx", "dgamma", "dbeta", "dscale", "dshift"), got, want, again):
+        err = float((a.float() - r.float()).abs().max())
+        assert err <= _tol(dtype, r.float()), (name, err)
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["mqa", "mha"])
+def test_attention_above_65535_sample_heads_on_card(cuda, kind):
+    """batch * heads = 8193 * 8 = 65544 (past the old grid-y limit):
+    forward and backward kernels against the plain versions at n 16, j 17."""
+    q, k, v, g, _ = _attention_case(cuda, torch.bfloat16, kind, 8193, 16, 17, False)
+    plain, plain_bwd = tflash._PLAIN[kind]
+    out, lse = tflash.attention_forward_kernel(kind, q, k, v, None, with_lse=True)
+    grads = tflash.attention_backward_kernel(kind, q, k, v, None, out, g, lse)
+    refs = (plain(q, k, v), *plain_bwd(q, k, v, g))
+    torch.cuda.synchronize()
+    for name, got, ref in zip(("out", "dq", "dk", "dv"), (out, *grads), refs):
+        err = float((got.float() - ref.float()).abs().max())
+        assert err <= _tol(torch.bfloat16, ref.float()), (name, err)

@@ -63,5 +63,11 @@ def test_t5_encoder_matches_flax(encoder, max_length):
 
 
 def test_only_local_encoders_load():
-    with pytest.raises(ValueError, match="needs a download"):
-        T.TextEncoder("t5_base", device="cpu")
+    """Only ``local:`` encoders load T5 weights; a name whose weights need a
+    download takes the JAX package's offline hash encoder, with a warning."""
+    T._FALLBACK_WARNED.discard("t5_base")
+    with pytest.warns(UserWarning, match="hash text encoder"):
+        enc = T.TextEncoder("t5_base", device="cpu")
+    assert enc.model is None
+    out, mask = enc.encode(["a red square"], 8)
+    assert out.shape == (1, 3, 768) and mask.all()

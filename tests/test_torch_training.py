@@ -282,6 +282,28 @@ def test_clipping_matches_optax():
         np.testing.assert_allclose(p.grad.numpy(), np.asarray(r), rtol=1e-6)
 
 
+@pytest.mark.parametrize("scale", [0.02, 9.0], ids=["below-limit", "above-limit"])
+def test_optax_style_clip_matches_clip_by_global_norm(scale):
+    """The clip scales by min(1, 50 / norm), the norm in float32 over every
+    leaf, as optax.clip_by_global_norm: below the limit the gradients keep
+    their bits; above it they agree to 2 float32 ulps (optax divides by the
+    norm and multiplies by 50, the port multiplies by 50 / norm)."""
+    rng = np.random.default_rng(13)
+    grads = [rng.normal(size=s).astype(np.float32) * scale for s in [(64, 48), (9,), (3, 3, 4, 8)]]
+    ref, _ = optax.clip_by_global_norm(50.0).update([jnp.asarray(g) for g in grads], None)
+    params = [torch.nn.Parameter(torch.zeros(g.shape)) for g in grads]
+    for p, g in zip(params, grads):
+        p.grad = torch.from_numpy(g.copy())
+    norm = ttrain.make_optimizer(1e-3).clip(params)
+    want = float(np.sqrt(sum(float(np.sum(g.astype(np.float64) ** 2)) for g in grads)))
+    assert abs(float(norm) - want) <= 1e-6 * want
+    assert (want > 50.0) == (scale > 1.0)
+    for p, r, g in zip(params, ref, grads):
+        if scale < 1.0:
+            np.testing.assert_array_equal(p.grad.numpy(), g)
+        np.testing.assert_array_max_ulp(p.grad.numpy(), np.asarray(r), maxulp=2)
+
+
 # --------------------------------------------------------------------------- #
 # init, dtypes, data                                                          #
 # --------------------------------------------------------------------------- #
