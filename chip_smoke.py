@@ -10,7 +10,13 @@ Phases, one line each with elapsed seconds; any failure exits non-zero:
 3. kernels: every kernel against its plain PyTorch version at every shape the
    main path gives it (recorded from one guided forward of each U-Net), in
    bfloat16 and float32, with the limit beside each max-abs difference, and
-   the kernel's, the plain version's and one PyTorch call's median times.
+   the kernel's, the plain version's and one PyTorch call's median times
+   (CUDA events around one call, the wrapper's host work included); for
+   attention also ``device_ms``, events around 20 launches back to back
+   over 20, for the kernel and for its yardstick (for multi-query the faster
+   of SDPA over K/V expanded to every head and SDPA's grouped-query form),
+   and a bound that counts the exponentials (16 per SM per clock at the SM
+   clock nvidia-smi reports) beside bytes and tensor operations.
 4. reference: one guided forward per U-Net on the card in float32 (kernels)
    against the port on the CPU in float32 (plain versions).
 5-7. the main path, with the launch counts reset just before it: the base
@@ -20,7 +26,9 @@ Phases, one line each with elapsed seconds; any failure exits non-zero:
    base 0.0245, truncated 0.0189).
 8. a measurement, not a check: the host time of 5 guided DDIM steps per
    stage, and a torch.profiler trace of them for the device's busy time and
-   its largest kernels.
+   its largest kernels, and the device ms per step of each attention
+   kernel family (the wgmma multi-query kernels, the mma.sync kernels, the
+   dk/dv slice sum).
 9. record the training step's kernel shapes: one step of both stages at
    batch 16 with hooks on the modules that call the kernels.
 10. backward kernels against their plain versions at those shapes, in
@@ -42,7 +50,8 @@ Phases, one line each with elapsed seconds; any failure exits non-zero:
    1.5x the committed run's (base 0.25, SR 1.10) and below its own mean
    over steps 1-200, every loss finite, every backward kernel launched.
 13. a measurement, not a check: host ms per training step and a
-   torch.profiler trace of 5 steps.
+   torch.profiler trace of 5 steps, with the attention families as in
+   phase 8.
 
 The reference's default cascade (``generate.default_imagen``: Base at 64px,
 Super at 128px, t5_base through the hash encoder, 2.33B parameters, fresh
@@ -71,7 +80,8 @@ objects are freed:
 The lite sampling profile (phase 8) also times the stem alone (a
 record_function range around it, and a trace of the SR stem by itself).
 
-Then it prints the kernels' JSON line, the card's name and power limit, and
+Then it prints the kernels' JSON line (attention entries also carry
+``device_ms`` and ``library_device_ms``), the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. It exits non-zero without a result when no CUDA card is present or the
 package is missing.
 """
@@ -109,6 +119,11 @@ DEVICE = "cuda"
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
+# exponentials: 16 per SM per clock (the special-function units), at the SM
+# clock nvidia-smi reports as clocks.max.sm (read in main)
+EXP_PER_SM_CLOCK = 16
+SM_CLOCK_HZ = None
+SM_COUNT = None
 
 KERNEL_INFO = {
     "mqa_forward": ("minimagen_tpu_torch/csrc/flash_attention.cu",
@@ -195,6 +210,15 @@ def traced(fn, ranges=()):
     return items, spans
 
 
+def attention_families(items, steps):
+    """Device ms per step of each attention kernel family of
+    minimagen_tpu_torch/ab_times.py (by kernel name) among trace items."""
+    from minimagen_tpu_torch.ab_times import ATTENTION_FAMILIES
+
+    return {family: sum(us for name, us in items if tag in name) / 1e3 / steps
+            for family, tag in ATTENTION_FAMILIES.items()}
+
+
 def stem_ranges(imagen):
     """A record_function range named "stem" around every U-Net's stem
     (forward pre- and post-hooks); returns the hook handles."""
@@ -250,6 +274,28 @@ def ptxas_summary(build_log):
         elif "Used" in line and "registers" in line:
             out.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
     return out
+
+
+def sm_clock_line():
+    """The SM clock ceiling as nvidia-smi gives it (e.g. "1980 MHz"), or
+    None."""
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+                             capture_output=True, text=True, timeout=60)
+        return out.stdout.strip().splitlines()[0] if out.returncode == 0 and out.stdout.strip() \
+            else None
+    except (OSError, subprocess.TimeoutExpired):
+        return None
+
+
+def device_ms(fn, reps=10):
+    """``device_ms`` of minimagen_tpu_torch/ab_times.py: the median over
+    `reps` of CUDA-event time around 20 back-to-back calls, over 20, so the
+    queue runs ahead of the host and the wrapper's host work hides behind
+    the device's (unless it is the longer)."""
+    from minimagen_tpu_torch.ab_times import device_ms as measure
+
+    return measure(fn, reps)
 
 
 def median_ms(fn, reps=10, warmup=2):
@@ -379,15 +425,30 @@ def check_attention(kind, shape, dtype, gen):
     err = float((out.float() - ref.float()).abs().max())
     row = dict(kernel=f"{kind}_forward", shape=list(shape), dtype=str(dtype).split(".")[-1],
                max_abs_err=err, limit=_limit(str(dtype).split(".")[-1], ref.float()))
-    kx, vx = (k[:, None].expand(b, h, j, d), v[:, None].expand(b, h, j, d)) if kind == "mqa" else (k, v)
     row["ms"] = median_ms(lambda: kernel(q, k, v))
+    row["device_ms"] = device_ms(lambda: kernel(q, k, v))
     row["plain_ms"] = median_ms(lambda: plain(q, k, v))
-    row["library_ms"] = median_ms(lambda: F.scaled_dot_product_attention(q, kx, vx, scale=1.0))
+    forms = {"sdpa": lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0)}
+    if kind == "mqa":  # K/V expanded over the heads, or SDPA's grouped-query form
+        kx, vx = k[:, None].expand(b, h, j, d), v[:, None].expand(b, h, j, d)
+        forms = {"sdpa expanded": lambda: F.scaled_dot_product_attention(q, kx, vx, scale=1.0),
+                 "sdpa gqa": lambda: F.scaled_dot_product_attention(
+                     q, k[:, None], v[:, None], scale=1.0, enable_gqa=True)}
+    row.update(_library(forms))
     itemsize = q.element_size()
     nbytes = (q.numel() * 2 + k.numel() + v.numel()) * itemsize
     ops = 4 * b * h * n * j * d
-    row.update(_bound(nbytes, ops, row["dtype"]))
+    row.update(_bound(nbytes, ops, row["dtype"], exps=b * h * n * j))
     return row
+
+
+def _library(forms):
+    """The yardstick: each one-call PyTorch form timed both ways; the faster
+    form by device time is the row's library call (timed only, never used
+    by the port)."""
+    times = {name: (median_ms(fn), device_ms(fn)) for name, fn in forms.items()}
+    best = min(times, key=lambda name: times[name][1])
+    return dict(library_ms=times[best][0], library_device_ms=times[best][1], library_form=best)
 
 
 def check_group_norm(shape, dtype, gen):
@@ -442,10 +503,20 @@ def check_depth_to_space(shape, dtype, gen):
     return row
 
 
-def _bound(nbytes, ops, dtype_name):
+def _bound(nbytes, ops, dtype_name, exps=0):
+    """The least time: bytes over the memory rate, operations over the
+    type's peak, and `exps` exponentials over the special-function units
+    (EXP_PER_SM_CLOCK per SM per clock); bound_by "bytes" or "operations",
+    bound_detail which of bytes, tensor or CUDA-core operations and
+    exponentials."""
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     op_ms = ops / PEAK_OPS[dtype_name] * 1e3
-    return dict(bound_ms=max(byte_ms, op_ms), bound_by="bytes" if byte_ms >= op_ms else "operations")
+    exp_ms = exps / (SM_COUNT * EXP_PER_SM_CLOCK * SM_CLOCK_HZ) * 1e3 if exps else 0.0
+    bound = max(byte_ms, op_ms, exp_ms)
+    detail = ("bytes" if bound == byte_ms else "exponentials" if bound == exp_ms
+              else "operations")
+    return dict(bound_ms=bound, bound_by="bytes" if bound == byte_ms else "operations",
+                bound_detail=detail, exp_bound_ms=exp_ms)
 
 
 def run_checks(per_stage, checks, seed, extra_mha_j=()):
@@ -604,11 +675,14 @@ def profile_steps(imagen, captions, steps=5):
         top = sorted(kernels_us, key=lambda kv: -kv[1])[:8]
         row = dict(stage=stage, wall_ms_per_step=wall_ms, device_busy_ms_per_step=busy_ms,
                    stem_ms_per_step=stem_ms,
+                   attention_ms_per_step=attention_families(kernels_us, steps),
                    top=[(name[:60], us / 1e3 / steps) for name, us in top])
         out.append(row)
         log(f"  stage {stage}: wall {wall_ms:.2f} ms/step, device busy {busy_ms:.2f} ms/step "
             f"({'not measured' if busy_ms == 0 else f'{100 * busy_ms / wall_ms:.0f}%'}), "
             f"stem (record_function range) {stem_ms:.3f} ms/step")
+        log("    attention kernels by family, device ms/step: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in row["attention_ms_per_step"].items()))
         for name, ms in row["top"]:
             log(f"    {ms:8.3f} ms/step  {name}")
     return out
@@ -699,29 +773,40 @@ def check_attention_backward(kind, shape, dtype, gen):
     err, lim = _worst([(out, fwd_ref), *zip(grads, refs)], name)
     row = dict(kernel=f"{kind}_backward", shape=list(shape), dtype=name, max_abs_err=err,
                limit=lim, bias=bias is not None)
-    row["ms"] = median_ms(lambda: fa.attention_backward_kernel(kind, q, k, v, bias, out, g, lse))
+    call = lambda: fa.attention_backward_kernel(kind, q, k, v, bias, out, g, lse)  # noqa: E731
+    row["ms"] = median_ms(call)
+    row["device_ms"] = device_ms(call)
     row["plain_ms"] = median_ms(lambda: plain_bwd(q, k, v, g, attn_bias=bias))
     qq, kk, vv = (t.detach().clone().requires_grad_() for t in (q, k, v))
-    kx, vx = ((kk[:, None].expand(b, h, j, d), vv[:, None].expand(b, h, j, d)) if kind == "mqa"
-              else (kk, vv))
     mask = None if keep is None else keep[:, None, None, :]
-    ys = F.scaled_dot_product_attention(qq, kx, vx, attn_mask=mask, scale=1.0)
-    row["library_ms"] = median_ms(
-        lambda: torch.autograd.grad(ys, (qq, kk, vv), g, retain_graph=True))
+
+    def grad_form(kx, vx, **kw):
+        ys = F.scaled_dot_product_attention(qq, kx, vx, attn_mask=mask, scale=1.0, **kw)
+        return lambda: torch.autograd.grad(ys, (qq, kk, vv), g, retain_graph=True)
+
+    if kind == "mqa":
+        forms = {"sdpa expanded": grad_form(kk[:, None].expand(b, h, j, d),
+                                            vv[:, None].expand(b, h, j, d)),
+                 "sdpa gqa": grad_form(kk[:, None], vv[:, None], enable_gqa=True)}
+    else:
+        forms = {"sdpa": grad_form(kk, vv)}
+    row.update(_library(forms))
     if bias is not None:  # the biased forward (with the log-sum-exp) and its yardstick
-        row["fwd_ms"] = median_ms(
-            lambda: fa.attention_forward_kernel(kind, q, k, v, bias, with_lse=True))
+        fwd = lambda: fa.attention_forward_kernel(kind, q, k, v, bias, with_lse=True)  # noqa: E731
+        lib = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=1.0)  # noqa: E731
+        row["fwd_ms"], row["fwd_device_ms"] = median_ms(fwd), device_ms(fwd)
         row["fwd_plain_ms"] = median_ms(lambda: plain(q, k, v, attn_bias=bias))
-        row["fwd_library_ms"] = median_ms(
-            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=1.0))
+        row["fwd_library_ms"], row["fwd_library_device_ms"] = median_ms(lib), device_ms(lib)
         fwd_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() \
             + 4 * (b * h * n + b * j)
-        row["fwd_bound_ms"] = _bound(fwd_bytes, 4 * b * h * n * j * d, name)["bound_ms"]
+        row["fwd_bound_ms"] = _bound(fwd_bytes, 4 * b * h * n * j * d, name,
+                                     exps=b * h * n * j)["bound_ms"]
     itemsize = q.element_size()
-    # read q, k, v, o, do (and lse, bias); write dq, dk, dv
+    # read q, k, v, o, do (and lse, bias); write dq, dk, dv; P rebuilt in
+    # both passes: 2 b h n j exponentials
     nbytes = (4 * q.numel() + 2 * (k.numel() + v.numel())) * itemsize + 4 * b * h * n \
         + (0 if bias is None else 4 * b * j)
-    row.update(_bound(nbytes, 10 * b * h * n * j * d, name))
+    row.update(_bound(nbytes, 10 * b * h * n * j * d, name, exps=2 * b * h * n * j))
     return row
 
 
@@ -768,14 +853,20 @@ def _report(rows):
     for r in rows:
         ok = r["max_abs_err"] <= r["limit"]
         lib = r["library_ms"]
+        dev = (f" (device {r['device_ms']:.4f})" if "device_ms" in r else "")
+        lib_dev = (f" (device {r['library_device_ms']:.4f}, {r['library_form']})"
+                   if "library_device_ms" in r else "")
         log(f"  {r['kernel']:<19} {r['dtype']:<8} {str(tuple(r['shape'])):<28}"
             f"{' +bias' if r.get('bias') else ''} "
             f"max_abs_err {r['max_abs_err']:.3e} (limit {r['limit']:.3e}) "
-            f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
-            f"library {lib if lib is None else round(lib, 4)} ms "
-            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) {'ok' if ok else 'FAIL'}"
-            + (f"; biased forward {r['fwd_ms']:.4f} ms plain {r['fwd_plain_ms']:.4f} ms "
-               f"library {r['fwd_library_ms']:.4f} ms bound {r['fwd_bound_ms']:.4f} ms"
+            f"kernel {r['ms']:.4f}{dev} ms plain {r['plain_ms']:.4f} ms "
+            f"library {lib if lib is None else round(lib, 4)}{lib_dev} ms "
+            f"bound {r['bound_ms']:.4f} ms ({r.get('bound_detail', r['bound_by'])}"
+            + (f"; exponentials {r['exp_bound_ms']:.4f}" if r.get("exp_bound_ms") else "")
+            + f") {'ok' if ok else 'FAIL'}"
+            + (f"; biased forward {r['fwd_ms']:.4f} (device {r['fwd_device_ms']:.4f}) ms plain "
+               f"{r['fwd_plain_ms']:.4f} ms library {r['fwd_library_ms']:.4f} (device "
+               f"{r['fwd_library_device_ms']:.4f}) ms bound {r['fwd_bound_ms']:.4f} ms"
                if "fwd_ms" in r else ""))
         if not ok:
             bad.append(r)
@@ -925,6 +1016,8 @@ def profile_train(run, steps=5):
     busy_ms = sum(us for _, us in items) / 1e3 / steps
     log(f"  train step: wall {wall_ms:.2f} ms/step, device busy {busy_ms:.2f} ms/step "
         f"({'not measured' if busy_ms == 0 else f'{100 * busy_ms / wall_ms:.0f}%'})")
+    log("    attention kernels by family, device ms/step: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in attention_families(items, steps).items()))
     for name, us in sorted(items, key=lambda kv: -kv[1])[:10]:
         log(f"    {us / 1e3 / steps:8.3f} ms/step  {name[:70]}")
     return dict(wall_ms_per_step=wall_ms, device_busy_ms_per_step=busy_ms)
@@ -1198,11 +1291,15 @@ def kernel_entries(rows, launches):
     for name, (source, replaces) in {**KERNEL_INFO, **BACKWARD_INFO}.items():
         bf16 = [r for r in rows if r["kernel"] == name and r["dtype"] == "bfloat16"]
         top = max(bf16, key=lambda r: r["bound_ms"])
-        entries.append(dict(name=name, route="cuda", source=source,
-                            replaces=REPLACES.get(name, replaces), launches=launches[name],
-                            max_abs_err=top["max_abs_err"], ms=top["ms"],
-                            plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
-                            bound_by=top["bound_by"], library_ms=top["library_ms"]))
+        entry = dict(name=name, route="cuda", source=source,
+                     replaces=REPLACES.get(name, replaces), launches=launches[name],
+                     max_abs_err=top["max_abs_err"], ms=top["ms"],
+                     plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+                     bound_by=top["bound_by"], library_ms=top["library_ms"])
+        for key in ("device_ms", "library_device_ms"):  # attention rows: 20 launches back to back
+            if key in top:
+                entry[key] = top[key]
+        entries.append(entry)
         log(f"  {name}: numbers at {tuple(top['shape'])} bfloat16")
     return entries
 
@@ -1250,8 +1347,16 @@ def main():
     # float32 references in full precision (no TF32 in matmuls or convs)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    global SM_CLOCK_HZ, SM_COUNT
     card = device_line()
-    log(f"card: {card}")
+    clock = sm_clock_line()
+    SM_COUNT = torch.cuda.get_device_properties(0).multi_processor_count
+    try:
+        SM_CLOCK_HZ = float(clock.split()[0]) * 1e6
+    except (AttributeError, ValueError, IndexError):
+        log(f"  nvidia-smi gave no SM clock ({clock!r}): the exponential bound takes 1980 MHz")
+        SM_CLOCK_HZ = 1.98e9
+    log(f"card: {card}, max SM clock {clock}, {SM_COUNT} SMs")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     with open(os.path.join(LITE_CKPT_DIR, "eval", "metrics.json")) as f:
         captions = json.load(f)["_config"]["eval_captions"]

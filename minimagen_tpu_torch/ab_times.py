@@ -1,17 +1,25 @@
-"""Time the port's attention and GroupNorm kernels at the lite paths' heaviest
+"""Time the port's attention, GroupNorm and depth-to-space kernels at the lite paths' heaviest
 shapes, and guided sampling steps of the lite cascade, to compare two
 checkouts on one card.
 
-    python minimagen_tpu_torch/ab_times.py --root PATH [--reps 50]
+    python minimagen_tpu_torch/ab_times.py --root PATH [--reps 50] [--kernels K,...]
 
 imports ``minimagen_tpu_torch`` from the checkout at PATH (so this file can
 time an older tree), builds its kernels and prints one JSON line: the
-card, the root, per kernel and bf16 shape the median CUDA-event time of
-`reps` launches in ms, and per lite stage the host ms per guided DDIM step
-(8 captions, 16 rows, random weights and text encodings: the time does not
-depend on their values), the median of `reps` // 10 runs of 5 steps, each
-ending in a synchronize. Run it for trees A and B in turns (A, B, B, A)
-within one call: the card and its neighbours then stay the same.
+card, the root; per kernel and bf16 shape the median CUDA-event time of
+one launch over `reps` launches (``median_ms``, the wrapper's host work
+included) and the median over `reps` // 5 of the time of 20 launches back
+to back over 20 (``device_ms``: the queue runs ahead of the host); per lite
+stage the host ms per guided DDIM step (8 captions, 16 rows, random weights
+and text encodings: the time does not depend on their values), the median
+of `reps` // 10 runs of 5 steps, each ending in a synchronize; and the
+device ms per step of each attention kernel family (by kernel name) in
+those steps and in a lite train step (batch 16), from a torch.profiler
+trace. ``--kernels`` times only the named kernels (e.g. mha_forward,
+mha_backward) and no steps: the card then runs nothing else between their
+launches. Run it for trees A
+and B in turns (A, B, B, A) within one call: the card and its neighbours
+then stay the same.
 """
 import argparse
 import json
@@ -20,14 +28,16 @@ import statistics
 import sys
 import time
 
-# (kernel, shape): attention (b, h, n, j), GroupNorm (b, h, w, c, with scale-shift)
+# (kernel, shape): attention (b, h, n, j), GroupNorm (b, h, w, c, with scale-shift),
+# depth-to-space + bias (b, h, w, f*f*c, f)
 SHAPES = [("mqa_forward", (16, 8, 1024, 1025)), ("mha_forward", (16, 8, 1024, 259)),
           ("mqa_backward", (16, 8, 1024, 1025)), ("mha_backward", (16, 8, 1024, 259)),
           ("group_norm_forward", (16, 256, 256, 32, False)),
           ("group_norm_forward", (16, 256, 256, 32, True)),
           ("group_norm_forward", (16, 64, 64, 64, True)),
           ("group_norm_backward", (16, 256, 256, 32, False)),
-          ("group_norm_backward", (16, 64, 64, 64, True))]
+          ("group_norm_backward", (16, 64, 64, 64, True)),
+          ("depth_to_space_bias", (16, 64, 64, 512, 4))]
 
 
 def median_ms(fn, reps):
@@ -46,6 +56,50 @@ def median_ms(fn, reps):
     return statistics.median(times)
 
 
+def device_ms(fn, reps, inner=20):
+    import torch
+
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+# attention kernel families by name: the Hopper multi-query kernels, the
+# mma.sync kernels (multi-head, and in older trees multi-query too) and the
+# dk/dv slice sum
+ATTENTION_FAMILIES = {"mqa (wgmma)": "mqa_", "attention (mma.sync)": "attention_",
+                      "kv_reduce": "kv_reduce"}
+
+
+def attention_ms(fn, calls):
+    """Device ms per call of `fn` of each attention kernel family, from a
+    torch.profiler trace of `calls` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {family: 0.0 for family in ATTENTION_FAMILIES}
+    for e in prof.key_averages():
+        if e.device_type.name != "CUDA" or e.self_device_time_total <= 0:
+            continue
+        for family, tag in ATTENTION_FAMILIES.items():
+            if tag in e.key:
+                out[family] += e.self_device_time_total / 1e3 / calls
+    return out
+
+
 def launcher(kernel, shape, gen):
     """A no-argument call of `kernel` on seeded bf16 inputs of `shape`."""
     import torch
@@ -53,6 +107,12 @@ def launcher(kernel, shape, gen):
     from minimagen_tpu_torch.ops import group_norm as gn
 
     rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(torch.bfloat16)  # noqa: E731
+    if kernel == "depth_to_space_bias":
+        from minimagen_tpu_torch.ops import stem_conv as sc
+
+        b, h, w, cf, f = shape
+        y2, bias = rnd(b, h, w, cf), rnd(cf // (f * f))
+        return lambda: sc.depth_to_space_bias(y2, bias, f)
     if kernel.startswith(("mqa", "mha")):
         kind = kernel[:3]
         b, h, n, j = shape
@@ -75,7 +135,8 @@ def launcher(kernel, shape, gen):
 
 
 def step_ms(stage, runs, steps=5):
-    """Host ms per guided DDIM step of lite stage `stage` at 8 captions."""
+    """Host ms per guided DDIM step of lite stage `stage` at 8 captions, and
+    the attention kernels' device ms per step."""
     import torch
     from minimagen_tpu_torch.generate import lite_imagen
 
@@ -102,13 +163,28 @@ def step_ms(stage, runs, steps=5):
         t0 = time.perf_counter()
         run()
         times.append((time.perf_counter() - t0) * 1e3 / steps)
-    return statistics.median(times)
+    attn = {k: v / steps for k, v in attention_ms(run, 1).items()}
+    return statistics.median(times), attn
+
+
+def train_attention_ms(steps=3):
+    """The attention kernels' device ms per lite train step (batch 16)."""
+    from minimagen_tpu_torch.training import train_lite
+
+    run = train_lite(1, 16, items=32, device="cuda")
+
+    def go():
+        k = run.state.step % run.batches["image"].shape[0]
+        run.step_fn(run.state, {name: v[k] for name, v in run.batches.items()}, seed=0)
+
+    return attention_ms(go, steps)
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--root", required=True, help="checkout whose minimagen_tpu_torch is timed")
     p.add_argument("--reps", type=int, default=50)
+    p.add_argument("--kernels", help="comma-separated kernel names to time alone (no steps)")
     args = p.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
@@ -120,11 +196,24 @@ def main(argv=None):
 
     kernels.library()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    times = {f"{k} {s}": median_ms(launcher(k, s, gen), args.reps) for k, s in SHAPES}
-    steps = {f"lite stage {i} host ms/step": step_ms(i, max(1, args.reps // 10)) for i in (0, 1)}
+    only = set(args.kernels.split(",")) if args.kernels else None
+    times, device = {}, {}
+    for k, s in SHAPES:
+        if only is not None and k not in only:
+            continue
+        fn = launcher(k, s, gen)
+        times[f"{k} {s}"] = median_ms(fn, args.reps)
+        device[f"{k} {s}"] = device_ms(fn, max(1, args.reps // 5))
+    steps, attention = {}, {}
+    if only is None:
+        for i in (0, 1):
+            steps[f"lite stage {i} host ms/step"], attention[f"lite stage {i}"] = \
+                step_ms(i, max(1, args.reps // 10))
+        attention["lite train step"] = train_attention_ms()
     print(json.dumps({"card": torch.cuda.get_device_name(0), "root": args.root,
                       "package": os.path.dirname(kernels.__file__), "median_ms": times,
-                      "steps": steps}), flush=True)
+                      "device_ms": device, "steps": steps,
+                      "attention_device_ms_per_step": attention}), flush=True)
     return 0
 
 

@@ -22,9 +22,41 @@
 // do, dq, dk, dv]) bytes, so at the main path's shapes (n, j ~ 1024) both
 // are compute-bound, and the products belong on the tensor cores.
 //
-// bfloat16 (the main path): FlashAttention-2 style on mma.sync m16n8k16.
-// A block of 4 warps owns 64 query rows (16 per warp, held as bf16 A
-// fragments); K/V stream through shared memory in tiles of 64 keys, read
+// bfloat16 multi-query (the U-Net's self-attention, the main path): a
+// Hopper design, mqa_*_hopper_kernel below. One K/V head serves all h heads
+// of a sample, so the sample's queries are one (h * n, 64) matrix and a
+// block takes 64 rows per consumer warpgroup across head boundaries: K/V is
+// fetched once per 128 or 256 rows instead of once per 64 rows of one head,
+// and a block is full at n = 64. Each block is warp-specialised: one thread
+// of a producer warpgroup keeps (64 keys x 64) bf16 tiles in flight into a
+// ring of 4 stages with TMA (128-byte swizzle, 128-byte rows, completion on
+// mbarriers; the consumers free a stage with an arrive), and the consumer
+// warpgroups run wgmma m64n64k16: S = Q K^T with both operands in shared
+// memory, O += P V with P from registers (the float32 accumulator layout
+// rounded to bf16 is the register A layout) and V through an MN-major
+// descriptor. A consumer runs one tile behind on the tensor cores: it issues
+// S of tile i + 1 and O += P V of tile i together, and takes the
+// exponentials of tile i + 1 while O += P V runs; the last tile is peeled
+// off so no product is issued under a branch (ptxas then keeps the wgmmas
+// asynchronous). The lean softmax instance (no bias, no mask) runs on every
+// full unbiased tile; O is rescaled only when a row's max moved. Forward:
+// four consumer warpgroups (256 rows) where that still fills the SMs, else
+// two. The backward is the two passes described below, on the same ring and
+// wgmma: pass 1 takes 128 rows across heads; pass 2 owns 128 keys of a
+// sample (K and V loaded once), walks the sample's rows of every head and
+// sums dk/dv in registers over the heads, so no per-head float32 slices
+// exist; to fill the last wave the rows split into 1, 2 or 4 fixed chunks
+// (row_splits), whose float32 slices kv_reduce_kernel sums in chunk order.
+// Bound at (16, 8, 1024, 1025): the forward's 34.4 GFLOP take 0.035 ms at
+// 989 TFLOP/s and its 134M exponentials 0.033 ms on the SFUs (16 per SM per
+// clock at 1.98 GHz), so tensor cores and exponentials are two rooflines of
+// the same height, which is why the exponentials overlap the products. The
+// backward (seven products, S and dP rebuilt in both passes) is 0.12 ms of
+// tensor work.
+//
+// bfloat16 multi-head (cross-attention): FlashAttention-2 style on mma.sync
+// m16n8k16. A block of 4 warps owns 64 query rows (16 per warp, held as bf16
+// A fragments); K/V stream through shared memory in tiles of 64 keys, read
 // with ldmatrix (V transposed) from rows padded to 72 elements so the reads
 // are conflict-free. S = Q K^T accumulates in float32 registers; the online
 // softmax keeps a float32 running max and row sum per row, P = exp(S - max)
@@ -44,13 +76,16 @@
 //      rows of that head, P^T and dS^T rebuilt the same way, dv += P^T dO,
 //      dk += dS^T Q, into a float32 buffer of one slice per (sample, head).
 //   Then a small pass sums the slices over the heads that share a K/V head
-//   (multi-query: all h; multi-head: just the one) in head order and casts.
+//   (multi-query in float32: all h; multi-head: just the one) in head order
+//   and casts.
 // No atomics: every sum is taken in a fixed order, so two runs give the same
 // bits. P and dS are rounded to bf16 as the A operands of the last three
 // products (the TPU kernel rounds dS for dq and keeps float32 for dk/dv).
 //
 // float32 (tests and the float32 reference run): the same passes on the
 // CUDA cores, one thread per query row (forward, dq) or per key (dk/dv).
+
+#include <cuda.h>  // CUtensorMap and its enums; the CUDA driver call comes through the runtime
 
 #include <algorithm>
 
@@ -719,6 +754,944 @@ __global__ void kv_reduce_kernel(const float* __restrict__ dk_acc,
   }
 }
 
+template <typename T>
+void launch_reduce(const float* dk_acc, const float* dv_acc, void* dk, void* dv, int parts,
+                   int n_kv, int j, cudaStream_t stream) {
+  const size_t per_kv = static_cast<size_t>(j) * kHeadDim;
+  const size_t total = per_kv * n_kv;
+  const int blocks = static_cast<int>(std::min<size_t>((total + 255) / 256, 132 * 16));
+  kv_reduce_kernel<T><<<blocks, 256, 0, stream>>>(dk_acc, dv_acc, static_cast<T*>(dk),
+                                                  static_cast<T*>(dv), parts, per_kv, total);
+}
+
+// ---- bfloat16 multi-query attention for Hopper: TMA ring + wgmma ----------
+// (design note at the head of the file)
+constexpr int kWgRows = 64;                     // rows of one consumer warpgroup: wgmma M
+constexpr int kRingTile = 64;                   // keys (forward, dq) or rows (dk/dv) per stage
+constexpr int kStages = 4;                      // depth of the TMA ring
+constexpr int kTileBytes = 64 * kHeadDim * 2;   // one (64, 64) bf16 tile: 128-byte rows, 8 KB
+constexpr int kMaxRowSplits = 4;                // dk/dv: most float32 partial slices per sample
+constexpr int kSmemAlign = 1024;                // 128-byte swizzle atoms: 8 rows of 128 B
+
+// Shared memory of each kernel with kWgs consumer warpgroups, alignment
+// slack included: the tiles loaded once, the ring, then the barriers.
+constexpr int fwd_smem(int wgs) {
+  return kSmemAlign + wgs * kTileBytes + 2 * kStages * kTileBytes + 8 * (1 + 2 * kStages);
+}
+constexpr int dq_smem(int wgs) {
+  return kSmemAlign + 2 * wgs * kTileBytes + 2 * kStages * kTileBytes + 8 * (1 + 2 * kStages);
+}
+constexpr int dkdv_smem(int wgs) {
+  return kSmemAlign + 2 * wgs * kTileBytes + 2 * kStages * kTileBytes +
+         2 * kStages * kRingTile * 4 + 8 * (1 + 2 * kStages);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait until the phase of `parity` has completed. A wait that lasts ~10 s
+// means a copy never landed: trap, so the launch fails instead of hanging.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  long long start = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (start == 0) start = clock64();
+    else if (clock64() - start > (1ll << 34)) __trap();
+  }
+}
+
+// One box of a tensor map into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_flat(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                              int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(0)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a (64, 64) bf16 tile written by TMA with
+// 128-byte swizzle: 8-row groups 1024 B apart. `lbo` is 16 B for a K-major
+// operand (unused there) and 1024 B for an MN-major one.
+__device__ __forceinline__ uint64_t tile_desc(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of an accumulator across a
+// wgmma issue or wait (the asynchronous product owns the registers between).
+__device__ __forceinline__ void fence_regs(float (&r)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+#define MMT_WGMMA_D32                                                                         \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "    \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define MMT_WGMMA_OUT32(d)                                                                     \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),          \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),  \
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),            \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),            \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+
+// d (64 x 64, float32) (+)= A B, A and B both from shared memory, K-major.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " MMT_WGMMA_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : MMT_WGMMA_OUT32(d)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 64, float32) += A B, A (64 x 16) from registers, B (16 x 64) an
+// MN-major shared tile (rows of B contiguous).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " MMT_WGMMA_D32
+      ", {%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
+      : MMT_WGMMA_OUT32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+
+// acc = A B^T over the 64 columns of two K-major (64, 64) tiles: S = Q K^T,
+// dP = dO V^T, S^T = K Q^T, dP^T = V dO^T. Issued, not waited for.
+__device__ __forceinline__ void gemm_abt(float (&acc)[32], uint32_t a_tile, uint32_t b_tile) {
+  const uint64_t da = tile_desc(a_tile, 16), db = tile_desc(b_tile, 16);
+#pragma unroll
+  for (int kk = 0; kk < kHeadDim / 16; ++kk) wgmma_ss(acc, da + 2 * kk, db + 2 * kk, kk);
+}
+
+// acc += P B: P the (64, 64) float32 accumulator `p` as bf16 register A
+// operands (packed by pack_a), B a (64, 64) tile whose rows are P's columns:
+// O += P V, dq += dS K, dv += P^T dO, dk += dS^T Q. Issued, not waited for.
+__device__ __forceinline__ void gemm_pb(float (&acc)[32], const uint32_t (&pa)[4][4],
+                                        uint32_t b_tile) {
+  const uint64_t db = tile_desc(b_tile, 1024);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc, pa[kk], db + 128 * kk);  // 16 rows = 2048 B
+}
+
+// The float32 accumulator layout of a 64 x 64 tile (d[4c + 2i + e] at row
+// 16 * warp + g + 8i, column 8c + 2t + e) rounded to bf16 is the register A
+// layout of four k16 steps.
+__device__ __forceinline__ void pack_a(uint32_t (&pa)[4][4], const float (&p)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    pa[kk][0] = pack_bf16(p[8 * kk + 0], p[8 * kk + 1]);
+    pa[kk][1] = pack_bf16(p[8 * kk + 2], p[8 * kk + 3]);
+    pa[kk][2] = pack_bf16(p[8 * kk + 4], p[8 * kk + 5]);
+    pa[kk][3] = pack_bf16(p[8 * kk + 6], p[8 * kk + 7]);
+  }
+}
+
+__device__ __forceinline__ uint32_t align_smem(const void* raw) {
+  return (smem_addr(raw) + kSmemAlign - 1) & ~static_cast<uint32_t>(kSmemAlign - 1);
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {  // MUFU.EX2; exp2(-inf) = 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The ring's barriers: `full` completes when a stage's copies have landed,
+// `empty` when every consumer warp is done with it.
+struct Ring {
+  uint32_t full0, empty0;
+  __device__ uint32_t full(int s) const { return full0 + 8 * s; }
+  __device__ uint32_t empty(int s) const { return empty0 + 8 * s; }
+  __device__ static uint32_t parity(int it) { return (it / kStages) & 1; }
+};
+
+// One-time setup by thread 0: the "loaded once" barrier and the ring.
+template <int kWgs>
+__device__ __forceinline__ Ring init_barriers(uint32_t bars) {
+  const Ring ring{bars + 8, bars + 8 + 8 * kStages};
+  if (threadIdx.x == 0) {
+    mbar_init(bars, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(ring.full(s), 1);
+      mbar_init(ring.empty(s), 4 * kWgs);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  return ring;
+}
+
+__device__ __forceinline__ void release(const Ring& ring, int s) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(ring.empty(s));
+}
+
+// Registers move from the producer warpgroup (24 a thread) to the consumers,
+// within the block's pool (65536 / threads a thread at launch, in steps of
+// 8): 240 each for two consumer warpgroups, 112 for four.
+__device__ __forceinline__ void producer_registers() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+}
+template <int kWgs>
+__device__ __forceinline__ void consumer_registers() {
+  static_assert(kWgs == 2 || kWgs == 4, "two or four consumer warpgroups");
+  if constexpr (kWgs == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  else asm volatile("setmaxnreg.inc.sync.aligned.u32 112;\n");
+}
+
+// The producer's loop over key tiles (forward, dq): K and V of tile `it`
+// into stage it % kStages once the consumers have released it.
+__device__ __forceinline__ void produce_kv(const Ring& ring, const CUtensorMap* k_map,
+                                           const CUtensorMap* v_map, uint32_t k_s, uint32_t v_s,
+                                           int sample, int tiles) {
+  for (int it = 0; it < tiles; ++it) {
+    const int s = it % kStages;
+    mbar_wait(ring.empty(s), Ring::parity(it) ^ 1);
+    mbar_expect_tx(ring.full(s), 2 * kTileBytes);
+    tma_load_3d(k_s + s * kTileBytes, k_map, ring.full(s), 0, it * kRingTile, sample);
+    tma_load_3d(v_s + s * kTileBytes, v_map, ring.full(s), 0, it * kRingTile, sample);
+  }
+}
+
+// The online softmax of one 64-key tile of S (this thread's two rows, 16
+// columns each), in place: the bias added and keys past j masked (only
+// where kEdge: a biased call or the ragged last tile), the running max and
+// this thread's share of the row sums updated, S replaced by
+// P = exp(S - max); returns in `corr` the factor the output must take.
+template <bool kEdge>
+__device__ __forceinline__ void softmax_tile(float (&s_acc)[32], float (&row_max)[2],
+                                             float (&row_sum)[2], float (&corr)[2],
+                                             const float* brow, int k0, int kt, int t) {
+  float tile_max[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int c = 0; c < 8; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s_acc[4 * c + e];
+      if constexpr (kEdge) {
+        const int col = 8 * c + 2 * t + (e & 1);
+        if (brow != nullptr && col < kt) x += __ldg(brow + k0 + col);
+        x = col < kt ? x : -INFINITY;  // ragged tail: keys past j
+        s_acc[4 * c + e] = x;
+      }
+      tile_max[e >> 1] = fmaxf(tile_max[e >> 1], x);
+    }
+  float neg_max[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {  // the 4 threads of a quad share a row
+    tile_max[i] = fmaxf(tile_max[i], __shfl_xor_sync(0xffffffffu, tile_max[i], 1));
+    tile_max[i] = fmaxf(tile_max[i], __shfl_xor_sync(0xffffffffu, tile_max[i], 2));
+    const float new_max = fmaxf(row_max[i], tile_max[i]);  // finite: key k0 is valid
+    corr[i] = fast_exp2((row_max[i] - new_max) * kLog2e);  // 0 on the first tile
+    row_max[i] = new_max;
+    row_sum[i] *= corr[i];
+    neg_max[i] = -new_max * kLog2e;
+  }
+#pragma unroll
+  for (int r = 0; r < 32; ++r) {
+    const float p = fast_exp2(fmaf(s_acc[r], kLog2e, neg_max[(r >> 1) & 1]));  // 0 when masked
+    row_sum[(r >> 1) & 1] += p;
+    s_acc[r] = p;
+  }
+}
+
+// softmax_tile for key tile `tile`: the lean instance unless the tile is
+// biased or ragged (warp-uniform branch).
+__device__ __forceinline__ void softmax_at(float (&s_acc)[32], float (&row_max)[2],
+                                           float (&row_sum)[2], float (&corr)[2],
+                                           const float* brow, int tile, int j, int t) {
+  const int k0 = tile * kRingTile, kt = min(kRingTile, j - k0);
+  if (brow != nullptr || kt < kRingTile)
+    softmax_tile<true>(s_acc, row_max, row_sum, corr, brow, k0, kt, t);
+  else
+    softmax_tile<false>(s_acc, row_max, row_sum, corr, brow, k0, kt, t);
+}
+
+// O *= corr, skipped when no row of the warp changed its max (corr == 1),
+// as happens on most tiles once the max has settled.
+__device__ __forceinline__ void rescale(float (&o_acc)[32], const float (&corr)[2]) {
+  if (__all_sync(0xffffffffu, corr[0] == 1.f && corr[1] == 1.f)) return;
+#pragma unroll
+  for (int r = 0; r < 32; ++r) o_acc[r] *= corr[(r >> 1) & 1];
+}
+
+// Forward. Grid (ceil(rows / (64 kWgs)), batch), rows = heads * n: a block
+// owns 64 kWgs consecutive rows of the sample's (rows, 64) queries, across
+// heads; consumer warpgroup wg the wg-th 64. Each consumer runs one tile
+// behind on the tensor cores: while O += P V of tile it runs, it takes the
+// exponentials of tile it + 1, whose S it issued just before.
+template <int kWgs>
+__global__ void __launch_bounds__(128 * (kWgs + 1), 1)
+    mqa_fwd_hopper_kernel(const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map,
+                          const float* __restrict__ bias, __nv_bfloat16* __restrict__ o,
+                          float* __restrict__ lse, int rows, int j) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t q_s = align_smem(smem_raw);
+  const uint32_t k_s = q_s + kWgs * kTileBytes, v_s = k_s + kStages * kTileBytes;
+  const uint32_t q_full = v_s + kStages * kTileBytes;
+  const Ring ring = init_barriers<kWgs>(q_full);
+  const int sample = blockIdx.y, row0 = blockIdx.x * kWgs * kWgRows;
+  const int tiles = (j + kRingTile - 1) / kRingTile;
+  const int warp = threadIdx.x >> 5;
+
+  if (warp < 4) {  // producer warpgroup: one thread issues every copy
+    producer_registers();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, kWgs * kTileBytes);
+      for (int h = 0; h < kWgs; ++h)
+        tma_load_3d(q_s + h * kTileBytes, &q_map, q_full, 0, row0 + h * kWgRows, sample);
+      produce_kv(ring, &k_map, &v_map, k_s, v_s, sample, tiles);
+    }
+    return;
+  }
+  consumer_registers<kWgs>();
+  const int wg = (warp >> 2) - 1, w = warp & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const uint32_t my_q = q_s + wg * kTileBytes;
+  const float* brow = bias == nullptr ? nullptr : bias + static_cast<size_t>(sample) * j;
+
+  float o_acc[32], s_acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o_acc[i] = 0.f;
+  float row_max[2] = {-INFINITY, -INFINITY};
+  float row_sum[2] = {0.f, 0.f};  // this thread's share of the two rows' sums
+  float corr[2];
+
+  mbar_wait(q_full, 0);
+  mbar_wait(ring.full(0), 0);
+  wgmma_fence();
+  gemm_abt(s_acc, my_q, k_s);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(s_acc);
+  softmax_at(s_acc, row_max, row_sum, corr, brow, 0, j, t);
+
+  // every tile but the last: issue S of the next tile and O += P V of this
+  // one, then take the next tile's exponentials while O += P V runs (the
+  // last tile is peeled off, so no product is issued under a branch)
+  for (int it = 0; it + 1 < tiles; ++it) {
+    const int s = it % kStages, sn = (it + 1) % kStages;
+    uint32_t pa[4][4];
+    pack_a(pa, s_acc);
+    rescale(o_acc, corr);
+    mbar_wait(ring.full(sn), Ring::parity(it + 1));
+    fence_regs(s_acc);
+    fence_regs(o_acc);
+    wgmma_fence();
+    gemm_abt(s_acc, my_q, k_s + sn * kTileBytes);  // into the registers P was packed from
+    wgmma_commit();
+    wgmma_fence();
+    gemm_pb(o_acc, pa, v_s + s * kTileBytes);  // O += P V
+    wgmma_commit();
+    wgmma_wait<1>();  // the next S is done; O += P V may still run
+    fence_regs(s_acc);
+    softmax_at(s_acc, row_max, row_sum, corr, brow, it + 1, j, t);
+    wgmma_wait<0>();
+    fence_regs(o_acc);
+    release(ring, s);
+  }
+  {
+    uint32_t pa[4][4];
+    pack_a(pa, s_acc);
+    rescale(o_acc, corr);
+    fence_regs(o_acc);
+    wgmma_fence();
+    gemm_pb(o_acc, pa, v_s + ((tiles - 1) % kStages) * kTileBytes);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o_acc);
+    release(ring, (tiles - 1) % kStages);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float total = row_sum[i];
+    total += __shfl_xor_sync(0xffffffffu, total, 1);
+    total += __shfl_xor_sync(0xffffffffu, total, 2);
+    const int row = row0 + wg * kWgRows + w * 16 + g + 8 * i;
+    if (row < rows) {
+      const size_t r = static_cast<size_t>(sample) * rows + row;
+      __nv_bfloat16* op = o + r * kHeadDim;
+#pragma unroll
+      for (int c = 0; c < 8; ++c)  // the late divide
+        *reinterpret_cast<uint32_t*>(op + 8 * c + 2 * t) =
+            pack_bf16(o_acc[4 * c + 2 * i] / total, o_acc[4 * c + 2 * i + 1] / total);
+      if (lse != nullptr && t == 0) lse[r] = row_max[i] + logf(total);
+    }
+  }
+}
+
+// dS of one 64-key tile for this thread's two rows, in place of S:
+// P = exp(S + bias - lse), 0 past j (bias and mask only where kEdge);
+// dS = P (dP - D).
+template <bool kEdge>
+__device__ __forceinline__ void ds_tile(float (&s_acc)[32], const float (&dp_acc)[32],
+                                        const float (&neg_lse)[2], const float (&d_r)[2],
+                                        const float* brow, int k0, int kt, int t) {
+#pragma unroll
+  for (int c = 0; c < 8; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = 8 * c + 2 * t + (e & 1), i = e >> 1;
+      float x = s_acc[4 * c + e];
+      if constexpr (kEdge)
+        if (brow != nullptr && col < kt) x += __ldg(brow + k0 + col);
+      float p = fast_exp2(fmaf(x, kLog2e, neg_lse[i]));
+      if constexpr (kEdge) p = col < kt ? p : 0.f;
+      s_acc[4 * c + e] = p * (dp_acc[4 * c + e] - d_r[i]);
+    }
+}
+
+__device__ __forceinline__ void ds_at(float (&s_acc)[32], const float (&dp_acc)[32],
+                                      const float (&neg_lse)[2], const float (&d_r)[2],
+                                      const float* brow, int tile, int j, int t) {
+  const int k0 = tile * kRingTile, kt = min(kRingTile, j - k0);
+  if (brow != nullptr || kt < kRingTile)
+    ds_tile<true>(s_acc, dp_acc, neg_lse, d_r, brow, k0, kt, t);
+  else
+    ds_tile<false>(s_acc, dp_acc, neg_lse, d_r, brow, k0, kt, t);
+}
+
+// Backward pass 1 (Q-major). Grid (ceil(rows / 128), batch), a block's 128
+// rows across heads as in the forward: D = rowsum(dO * O) of the block's
+// rows into `delta`, then over all key tiles S = Q K^T,
+// dP = dO V^T, dS = P (dP - D), dq += dS K; one tile behind on the tensor
+// cores as the forward (dS of tile it + 1 while dq += dS K of tile it runs).
+constexpr int kBwdWgs = 2;  // consumer warpgroups of the backward passes
+
+__global__ void __launch_bounds__(128 * (kBwdWgs + 1), 1)
+    mqa_bwd_dq_hopper_kernel(const __grid_constant__ CUtensorMap q_map,
+                             const __grid_constant__ CUtensorMap do_map,
+                             const __grid_constant__ CUtensorMap k_map,
+                             const __grid_constant__ CUtensorMap v_map,
+                             const float* __restrict__ bias, const __nv_bfloat16* __restrict__ o,
+                             const __nv_bfloat16* __restrict__ dout,
+                             const float* __restrict__ lse, __nv_bfloat16* __restrict__ dq,
+                             float* __restrict__ delta, int rows, int j) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t q_s = align_smem(smem_raw);
+  const uint32_t do_s = q_s + kBwdWgs * kTileBytes;
+  const uint32_t k_s = do_s + kBwdWgs * kTileBytes, v_s = k_s + kStages * kTileBytes;
+  const uint32_t rows_full = v_s + kStages * kTileBytes;
+  const Ring ring = init_barriers<kBwdWgs>(rows_full);
+  const int sample = blockIdx.y, row0 = blockIdx.x * kBwdWgs * kWgRows;
+  const int tiles = (j + kRingTile - 1) / kRingTile;
+  const int warp = threadIdx.x >> 5;
+
+  if (warp < 4) {
+    producer_registers();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(rows_full, 2 * kBwdWgs * kTileBytes);
+      for (int h = 0; h < kBwdWgs; ++h) {
+        tma_load_3d(q_s + h * kTileBytes, &q_map, rows_full, 0, row0 + h * kWgRows, sample);
+        tma_load_3d(do_s + h * kTileBytes, &do_map, rows_full, 0, row0 + h * kWgRows, sample);
+      }
+      produce_kv(ring, &k_map, &v_map, k_s, v_s, sample, tiles);
+    }
+    return;
+  }
+  consumer_registers<kBwdWgs>();
+  const int wg = (warp >> 2) - 1, w = warp & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const uint32_t my_q = q_s + wg * kTileBytes, my_do = do_s + wg * kTileBytes;
+  const float* brow = bias == nullptr ? nullptr : bias + static_cast<size_t>(sample) * j;
+
+  // D and the log-sum-exp of this thread's two rows: each of a quad's 4
+  // threads sums 16 of the 64 columns
+  float d_r[2], neg_lse[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + wg * kWgRows + w * 16 + g + 8 * i;
+    const bool valid = row < rows;
+    const size_t r = static_cast<size_t>(sample) * rows + (valid ? row : 0);
+    float acc = 0.f;
+    if (valid) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint4 ov = *reinterpret_cast<const uint4*>(o + r * kHeadDim + t * 16 + h * 8);
+        const uint4 dv = *reinterpret_cast<const uint4*>(dout + r * kHeadDim + t * 16 + h * 8);
+        const __nv_bfloat16* oe = reinterpret_cast<const __nv_bfloat16*>(&ov);
+        const __nv_bfloat16* de = reinterpret_cast<const __nv_bfloat16*>(&dv);
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          acc = fmaf(__bfloat162float(de[e]), __bfloat162float(oe[e]), acc);
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    d_r[i] = acc;
+    neg_lse[i] = valid ? -lse[r] * kLog2e : -INFINITY;  // rows past the sample: P = 0
+    if (valid && t == 0) delta[r] = acc;
+  }
+
+  float dq_acc[32], s_acc[32], dp_acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dq_acc[i] = 0.f;
+  mbar_wait(rows_full, 0);
+  mbar_wait(ring.full(0), 0);
+  wgmma_fence();
+  gemm_abt(s_acc, my_q, k_s);
+  gemm_abt(dp_acc, my_do, v_s);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(s_acc);
+  fence_regs(dp_acc);
+  ds_at(s_acc, dp_acc, neg_lse, d_r, brow, 0, j, t);
+
+  for (int it = 0; it + 1 < tiles; ++it) {  // the last tile peeled off, as the forward
+    const int s = it % kStages, sn = (it + 1) % kStages;
+    uint32_t pa[4][4];
+    pack_a(pa, s_acc);
+    mbar_wait(ring.full(sn), Ring::parity(it + 1));
+    fence_regs(s_acc);
+    fence_regs(dp_acc);
+    fence_regs(dq_acc);
+    wgmma_fence();
+    gemm_abt(s_acc, my_q, k_s + sn * kTileBytes);
+    gemm_abt(dp_acc, my_do, v_s + sn * kTileBytes);
+    wgmma_commit();
+    wgmma_fence();
+    gemm_pb(dq_acc, pa, k_s + s * kTileBytes);  // dq += dS K
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(s_acc);
+    fence_regs(dp_acc);
+    ds_at(s_acc, dp_acc, neg_lse, d_r, brow, it + 1, j, t);
+    wgmma_wait<0>();
+    fence_regs(dq_acc);
+    release(ring, s);
+  }
+  {
+    uint32_t pa[4][4];
+    pack_a(pa, s_acc);
+    fence_regs(dq_acc);
+    wgmma_fence();
+    gemm_pb(dq_acc, pa, k_s + ((tiles - 1) % kStages) * kTileBytes);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq_acc);
+    release(ring, (tiles - 1) % kStages);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + wg * kWgRows + w * 16 + g + 8 * i;
+    if (row < rows) {
+      __nv_bfloat16* dst = dq + (static_cast<size_t>(sample) * rows + row) * kHeadDim;
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        *reinterpret_cast<uint32_t*>(dst + 8 * c + 2 * t) =
+            pack_bf16(dq_acc[4 * c + 2 * i], dq_acc[4 * c + 2 * i + 1]);
+    }
+  }
+}
+
+// P^T and dS^T of one 64-row tile for this thread's two keys, in place of
+// S^T and dP^T; rows past the sample (only in a ragged tile) get P = 0.
+template <bool kEdge>
+__device__ __forceinline__ void dst_tile(float (&st)[32], float (&dpt)[32], const float* ls,
+                                         const float* ds, const float (&b_key)[2], int valid_rows,
+                                         int t) {
+#pragma unroll
+  for (int c = 0; c < 8; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = 8 * c + 2 * t + (e & 1);
+      float l = ls[col];
+      if constexpr (kEdge) l = col < valid_rows ? l : INFINITY;
+      const float p = fast_exp2((st[4 * c + e] + b_key[e >> 1] - l) * kLog2e);
+      st[4 * c + e] = p;
+      dpt[4 * c + e] = p * (dpt[4 * c + e] - ds[col]);
+    }
+}
+
+__device__ __forceinline__ void dst_at(float (&st)[32], float (&dpt)[32], const float* ls,
+                                       const float* ds, const float (&b_key)[2], int valid_rows,
+                                       int t) {
+  if (valid_rows < kRingTile)
+    dst_tile<true>(st, dpt, ls, ds, b_key, valid_rows, t);
+  else
+    dst_tile<false>(st, dpt, ls, ds, b_key, valid_rows, t);
+}
+
+// Backward pass 2 (K/V-major). Grid (ceil(j / 128) * splits, batch): a
+// block owns 128 keys of one sample (64 per consumer warpgroup, K and V
+// loaded once) and walks row tiles [split * T / splits, (split + 1) * T /
+// splits) of the sample's T = ceil(rows / 64), every head: S^T = K Q^T,
+// dP^T = V dO^T, dv += P^T dO, dk += dS^T Q, summed in registers over the
+// heads, one tile behind on the tensor cores as the forward. One split
+// writes dk/dv in bf16; more write float32 slices (sample, split) that
+// kv_reduce_kernel sums in split order.
+__global__ void __launch_bounds__(128 * (kBwdWgs + 1), 1)
+    mqa_bwd_dkdv_hopper_kernel(const __grid_constant__ CUtensorMap q_map,
+                               const __grid_constant__ CUtensorMap do_map,
+                               const __grid_constant__ CUtensorMap k_map,
+                               const __grid_constant__ CUtensorMap v_map,
+                               const __grid_constant__ CUtensorMap lse_map,
+                               const __grid_constant__ CUtensorMap delta_map,
+                               const float* __restrict__ bias, __nv_bfloat16* __restrict__ dk,
+                               __nv_bfloat16* __restrict__ dv, float* __restrict__ dk_acc,
+                               float* __restrict__ dv_acc, int rows, int j, int splits) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t k_s = align_smem(smem_raw);
+  const uint32_t v_s = k_s + kBwdWgs * kTileBytes;
+  const uint32_t q_s = v_s + kBwdWgs * kTileBytes, do_s = q_s + kStages * kTileBytes;
+  const uint32_t lse_s = do_s + kStages * kTileBytes;
+  const uint32_t delta_s = lse_s + kStages * kRingTile * 4;
+  const uint32_t kv_full = delta_s + kStages * kRingTile * 4;
+  const Ring ring = init_barriers<kBwdWgs>(kv_full);
+  const int sample = blockIdx.y;
+  const int key_block = blockIdx.x / splits, split = blockIdx.x % splits;
+  const int key0 = key_block * kBwdWgs * kWgRows;
+  const int row_tiles = (rows + kRingTile - 1) / kRingTile;
+  const int t_begin = split * row_tiles / splits, t_end = (split + 1) * row_tiles / splits;
+  const int tiles = t_end - t_begin;
+  const int warp = threadIdx.x >> 5;
+
+  if (warp < 4) {
+    producer_registers();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(kv_full, 2 * kBwdWgs * kTileBytes);
+      for (int h = 0; h < kBwdWgs; ++h) {
+        tma_load_3d(k_s + h * kTileBytes, &k_map, kv_full, 0, key0 + h * kWgRows, sample);
+        tma_load_3d(v_s + h * kTileBytes, &v_map, kv_full, 0, key0 + h * kWgRows, sample);
+      }
+      for (int it = 0; it < tiles; ++it) {
+        const int s = it % kStages, r0 = (t_begin + it) * kRingTile;
+        const int flat = sample * rows + r0;  // lse / delta: flat (batch * rows) rows
+        mbar_wait(ring.empty(s), Ring::parity(it) ^ 1);
+        mbar_expect_tx(ring.full(s), 2 * kTileBytes + 2 * kRingTile * 4);
+        tma_load_3d(q_s + s * kTileBytes, &q_map, ring.full(s), 0, r0, sample);
+        tma_load_3d(do_s + s * kTileBytes, &do_map, ring.full(s), 0, r0, sample);
+        tma_load_flat(lse_s + s * kRingTile * 4, &lse_map, ring.full(s), flat);
+        tma_load_flat(delta_s + s * kRingTile * 4, &delta_map, ring.full(s), flat);
+      }
+    }
+    return;
+  }
+  consumer_registers<kBwdWgs>();
+  const int wg = (warp >> 2) - 1, w = warp & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const uint32_t my_k = k_s + wg * kTileBytes, my_v = v_s + wg * kTileBytes;
+  // generic pointers to the ring's lse and delta rows
+  const float* lse_p = reinterpret_cast<const float*>(smem_raw + (lse_s - smem_addr(smem_raw)));
+  const float* delta_p = reinterpret_cast<const float*>(smem_raw + (delta_s - smem_addr(smem_raw)));
+  float b_key[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = key0 + wg * kWgRows + w * 16 + g + 8 * i;
+    b_key[i] = (bias != nullptr && key < j) ? bias[static_cast<size_t>(sample) * j + key] : 0.f;
+  }
+
+  float dk_r[32], dv_r[32], st[32], dpt[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk_r[i] = dv_r[i] = 0.f;
+  mbar_wait(kv_full, 0);
+  mbar_wait(ring.full(0), 0);  // tiles >= 1: row_splits keeps splits <= row tiles
+  wgmma_fence();
+  gemm_abt(st, my_k, q_s);    // S^T: rows are keys, columns query rows
+  gemm_abt(dpt, my_v, do_s);  // dP^T
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(st);
+  fence_regs(dpt);
+  dst_at(st, dpt, lse_p, delta_p, b_key, rows - t_begin * kRingTile, t);
+  for (int it = 0; it + 1 < tiles; ++it) {  // the last tile peeled off, as the forward
+    const int s = it % kStages, sn = (it + 1) % kStages;
+    uint32_t pa[4][4], da[4][4];
+    pack_a(pa, st);
+    pack_a(da, dpt);
+    mbar_wait(ring.full(sn), Ring::parity(it + 1));
+    fence_regs(st);
+    fence_regs(dpt);
+    fence_regs(dv_r);
+    fence_regs(dk_r);
+    wgmma_fence();
+    gemm_abt(st, my_k, q_s + sn * kTileBytes);
+    gemm_abt(dpt, my_v, do_s + sn * kTileBytes);
+    wgmma_commit();
+    wgmma_fence();
+    gemm_pb(dv_r, pa, do_s + s * kTileBytes);  // dv += P^T dO
+    gemm_pb(dk_r, da, q_s + s * kTileBytes);   // dk += dS^T Q
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(st);
+    fence_regs(dpt);
+    dst_at(st, dpt, lse_p + sn * kRingTile, delta_p + sn * kRingTile, b_key,
+             rows - (t_begin + it + 1) * kRingTile, t);
+    wgmma_wait<0>();
+    fence_regs(dv_r);
+    fence_regs(dk_r);
+    release(ring, s);
+  }
+  {
+    const int s = (tiles - 1) % kStages;
+    uint32_t pa[4][4], da[4][4];
+    pack_a(pa, st);
+    pack_a(da, dpt);
+    fence_regs(dv_r);
+    fence_regs(dk_r);
+    wgmma_fence();
+    gemm_pb(dv_r, pa, do_s + s * kTileBytes);
+    gemm_pb(dk_r, da, q_s + s * kTileBytes);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv_r);
+    fence_regs(dk_r);
+    release(ring, s);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = key0 + wg * kWgRows + w * 16 + g + 8 * i;
+    if (key >= j) continue;
+    if (splits == 1) {
+      const size_t out = (static_cast<size_t>(sample) * j + key) * kHeadDim;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        *reinterpret_cast<uint32_t*>(dk + out + 8 * c + 2 * t) =
+            pack_bf16(dk_r[4 * c + 2 * i], dk_r[4 * c + 2 * i + 1]);
+        *reinterpret_cast<uint32_t*>(dv + out + 8 * c + 2 * t) =
+            pack_bf16(dv_r[4 * c + 2 * i], dv_r[4 * c + 2 * i + 1]);
+      }
+    } else {
+      const size_t out = ((static_cast<size_t>(sample) * splits + split) * j + key) * kHeadDim;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        *reinterpret_cast<float2*>(dk_acc + out + 8 * c + 2 * t) =
+            make_float2(dk_r[4 * c + 2 * i], dk_r[4 * c + 2 * i + 1]);
+        *reinterpret_cast<float2*>(dv_acc + out + 8 * c + 2 * t) =
+            make_float2(dv_r[4 * c + 2 * i], dv_r[4 * c + 2 * i + 1]);
+      }
+    }
+  }
+}
+
+// ---- host side: tensor maps and launches of the Hopper kernels -------------
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the CUDA driver through the runtime, so the
+// library needs no -lcuda.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    const bool ok = err == cudaSuccess && found == cudaDriverEntryPointSuccess;
+    return ok ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// (batch, rows, 64) bf16 rows as (64, 64) boxes with 128-byte swizzle; rows
+// past `rows` read as zeros.
+bool encode_rows(CUtensorMap* map, const void* ptr, int rows, int batch) {
+  const cuuint64_t dims[3] = {kHeadDim, static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[2] = {kHeadDim * 2, static_cast<cuuint64_t>(rows) * kHeadDim * 2};
+  const cuuint32_t box[3] = {kHeadDim, kRingTile, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  EncodeTiled fn = encode_tiled();
+  return fn != nullptr &&
+         fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A flat float32 vector as boxes of 64 (a 2-D map of one row: the
+// well-trodden form); entries past `count` read as zeros.
+bool encode_flat(CUtensorMap* map, const float* ptr, size_t count) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(count), 1};
+  const cuuint64_t strides[1] = {(static_cast<cuuint64_t>(count) * 4 + 15) / 16 * 16};
+  const cuuint32_t box[2] = {kRingTile, 1};
+  const cuuint32_t elem[2] = {1, 1};
+  EncodeTiled fn = encode_tiled();
+  return fn != nullptr &&
+         fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(ptr), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Make the device that holds `ptr` current in the calling thread, which
+// makes its primary context current for the CUDA driver's tensor-map
+// encoding: a thread that PyTorch's autograd engine runs a backward on may
+// have none (the encoding then fails where a plain launch would not).
+cudaError_t use_device_of(const void* ptr) {
+  cudaPointerAttributes attr;
+  const cudaError_t err = cudaPointerGetAttributes(&attr, ptr);
+  return err != cudaSuccess ? err : cudaSetDevice(attr.device);
+}
+
+// Opt a kernel into its dynamic shared memory (above the 48 KB default) on
+// the current device, once per device.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, unsigned& devices_done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 32 && (devices_done >> dev & 1u)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && dev < 32) devices_done |= 1u << dev;
+  return err;
+}
+
+int sm_count() {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms;
+}
+
+// Row splits of the dk/dv pass: the count in {1, 2, 4} (at most the row
+// tiles) whose blocks fill the last wave best; a larger count must gain 5%.
+int row_splits(int blocks, int row_tiles) {
+  const int sms = sm_count();
+  int best = 1;
+  double best_fill = 0.0;
+  for (int s = 1; s <= kMaxRowSplits && s <= row_tiles; s *= 2) {
+    const long long total = static_cast<long long>(blocks) * s;
+    const double fill = static_cast<double>(total) / (((total + sms - 1) / sms) * sms);
+    if (fill > best_fill + 0.05) {
+      best = s;
+      best_fill = fill;
+    }
+  }
+  return best;
+}
+
+template <int kWgs>
+int launch_fwd(const CUtensorMap& q_map, const CUtensorMap& k_map, const CUtensorMap& v_map,
+               const float* bias, void* o, float* lse, int batch, int rows, int j,
+               cudaStream_t stream) {
+  static unsigned smem_set = 0;
+  const cudaError_t err = allow_smem(mqa_fwd_hopper_kernel<kWgs>, fwd_smem(kWgs), smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((rows + kWgs * kWgRows - 1) / (kWgs * kWgRows), batch);
+  mqa_fwd_hopper_kernel<kWgs><<<grid, 128 * (kWgs + 1), fwd_smem(kWgs), stream>>>(
+      q_map, k_map, v_map, bias, static_cast<__nv_bfloat16*>(o), lse, rows, j);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_mqa_forward_hopper(const void* q, const void* k, const void* v, const float* bias,
+                              void* o, float* lse, int batch, int heads, int n, int j,
+                              cudaStream_t stream) {
+  const int rows = heads * n;
+  const cudaError_t dev_err = use_device_of(q);
+  if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
+  CUtensorMap q_map, k_map, v_map;
+  if (!encode_rows(&q_map, q, rows, batch) || !encode_rows(&k_map, k, j, batch) ||
+      !encode_rows(&v_map, v, j, batch))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // four consumer warpgroups (256 rows a block) hide more latency; two
+  // where four would leave SMs idle (short sequences)
+  const long long blocks4 =
+      static_cast<long long>((rows + 4 * kWgRows - 1) / (4 * kWgRows)) * batch;
+  return blocks4 >= sm_count()
+             ? launch_fwd<4>(q_map, k_map, v_map, bias, o, lse, batch, rows, j, stream)
+             : launch_fwd<2>(q_map, k_map, v_map, bias, o, lse, batch, rows, j, stream);
+}
+
+int launch_dq(const CUtensorMap& q_map, const CUtensorMap& do_map, const CUtensorMap& k_map,
+              const CUtensorMap& v_map, const float* bias, const void* o, const void* dout,
+              const float* lse, void* dq, float* delta, int batch, int rows, int j,
+              cudaStream_t stream) {
+  static unsigned smem_set = 0;
+  const cudaError_t err = allow_smem(mqa_bwd_dq_hopper_kernel, dq_smem(kBwdWgs), smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((rows + kBwdWgs * kWgRows - 1) / (kBwdWgs * kWgRows), batch);
+  mqa_bwd_dq_hopper_kernel<<<grid, 128 * (kBwdWgs + 1), dq_smem(kBwdWgs), stream>>>(
+      q_map, do_map, k_map, v_map, bias, static_cast<const __nv_bfloat16*>(o),
+      static_cast<const __nv_bfloat16*>(dout), lse, static_cast<__nv_bfloat16*>(dq), delta, rows,
+      j);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_dkdv(const CUtensorMap& q_map, const CUtensorMap& do_map, const CUtensorMap& k_map,
+                const CUtensorMap& v_map, const CUtensorMap& lse_map, const CUtensorMap& delta_map,
+                const float* bias, void* dk, void* dv, float* dk_acc, float* dv_acc, int batch,
+                int rows, int j, cudaStream_t stream) {
+  static unsigned smem_set = 0;
+  const cudaError_t err = allow_smem(mqa_bwd_dkdv_hopper_kernel, dkdv_smem(kBwdWgs), smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int key_blocks = (j + kBwdWgs * kWgRows - 1) / (kBwdWgs * kWgRows);
+  const int splits = row_splits(key_blocks * batch, (rows + kRingTile - 1) / kRingTile);
+  mqa_bwd_dkdv_hopper_kernel<<<dim3(key_blocks * splits, batch), 128 * (kBwdWgs + 1),
+                               dkdv_smem(kBwdWgs), stream>>>(
+      q_map, do_map, k_map, v_map, lse_map, delta_map, bias, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), dk_acc, dv_acc, rows, j, splits);
+  if (splits > 1) launch_reduce<__nv_bfloat16>(dk_acc, dv_acc, dk, dv, splits, batch, j, stream);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// scratch: float32, delta (batch * rows, rounded up to 4) then two regions of
+// kMaxRowSplits * batch * j * 64 (dk, dv partial slices)
+int launch_mqa_backward_hopper(const void* q, const void* k, const void* v, const float* bias,
+                               const void* o, const void* dout, const float* lse, void* dq,
+                               void* dk, void* dv, float* scratch, int batch, int heads, int n,
+                               int j, cudaStream_t stream) {
+  const int rows = heads * n;
+  const size_t flat = static_cast<size_t>(batch) * rows;
+  float* delta = scratch;
+  float* dk_acc = scratch + (flat + 3) / 4 * 4;
+  float* dv_acc = dk_acc + static_cast<size_t>(kMaxRowSplits) * batch * j * kHeadDim;
+  const cudaError_t dev_err = use_device_of(q);
+  if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
+  CUtensorMap q_map, do_map, k_map, v_map, lse_map, delta_map;
+  if (!encode_rows(&q_map, q, rows, batch) || !encode_rows(&do_map, dout, rows, batch) ||
+      !encode_rows(&k_map, k, j, batch) || !encode_rows(&v_map, v, j, batch) ||
+      !encode_flat(&lse_map, lse, flat) || !encode_flat(&delta_map, delta, flat))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int err = launch_dq(q_map, do_map, k_map, v_map, bias, o, dout, lse, dq, delta, batch,
+                               rows, j, stream);
+  if (err != 0) return err;
+  return launch_dkdv(q_map, do_map, k_map, v_map, lse_map, delta_map, bias, dk, dv, dk_acc,
+                        dv_acc, batch, rows, j, stream);
+}
+
 bool bad_sizes(int batch, int heads, int n, int j, int head_dim) {
   return head_dim != kHeadDim || batch <= 0 || heads <= 0 || n <= 0 || j <= 0 ||
          batch > kMaxGridYZ || heads > kMaxGridYZ;
@@ -734,6 +1707,8 @@ int launch_forward(const void* q, const void* k, const void* v, const float* bia
     attention_fwd_kernel<<<grid, kBlockQ, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), bias, static_cast<float*>(o), lse, kv_group, heads, n, j);
+  } else if (dtype == mmt::kBFloat16 && shared_kv) {
+    return launch_mqa_forward_hopper(q, k, v, bias, o, lse, batch, heads, n, j, stream);
   } else if (dtype == mmt::kBFloat16) {
     const dim3 grid((n + kTcRows - 1) / kTcRows, heads, batch);
     attention_fwd_bf16_kernel<<<grid, kTcThreads, 0, stream>>>(
@@ -746,23 +1721,17 @@ int launch_forward(const void* q, const void* k, const void* v, const float* bia
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-void launch_reduce(const float* dk_acc, const float* dv_acc, void* dk, void* dv, int parts,
-                   int n_kv, int j, cudaStream_t stream) {
-  const size_t per_kv = static_cast<size_t>(j) * kHeadDim;
-  const size_t total = per_kv * n_kv;
-  const int blocks = static_cast<int>(std::min<size_t>((total + 255) / 256, 132 * 16));
-  kv_reduce_kernel<T><<<blocks, 256, 0, stream>>>(dk_acc, dv_acc, static_cast<T*>(dk),
-                                                  static_cast<T*>(dv), parts, per_kv, total);
-}
-
-// scratch: float32, batch*heads*n (D) + 2 * batch*heads*j*head_dim (dk/dv slices)
+// scratch: float32, batch*heads*n (D) + 2 * batch*heads*j*head_dim (dk/dv slices);
+// the bf16 multi-query route lays it out as launch_mqa_backward_hopper says
 int launch_backward(const void* q, const void* k, const void* v, const float* bias,
                     const void* o, const void* dout, const float* lse, void* dq, void* dk,
                     void* dv, float* scratch, int batch, int heads, int n, int j, int head_dim,
                     int dtype, bool shared_kv, cudaStream_t stream) {
   if (bad_sizes(batch, heads, n, j, head_dim) || lse == nullptr || scratch == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == mmt::kBFloat16 && shared_kv)
+    return launch_mqa_backward_hopper(q, k, v, bias, o, dout, lse, dq, dk, dv, scratch, batch,
+                                      heads, n, j, stream);
   const int kv_group = shared_kv ? heads : 1;
   const int bh = batch * heads;
   float* delta = scratch;

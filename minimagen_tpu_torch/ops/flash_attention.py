@@ -146,6 +146,21 @@ def attention_forward_kernel(kind: str, q, k, v, bias=None, with_lse: bool = Fal
     return out, lse
 
 
+MAX_ROW_SPLITS = 4  # csrc/flash_attention.cu kMaxRowSplits: float32 dk/dv slices per sample
+
+
+def backward_scratch_floats(kind: str, dtype: torch.dtype, b: int, h: int, n: int, j: int,
+                            d: int = 64) -> int:
+    """Float32 scratch of the backward kernel: the rows' D = rowsum(dO * O),
+    then dk/dv partial sums. The bf16 multi-query kernel sums dk/dv over all
+    heads in registers and keeps at most MAX_ROW_SPLITS slices per sample
+    (D rounded up to 4 floats, so the slices stay 16-byte aligned); the
+    other kernels keep one slice per (sample, head)."""
+    if kind == "mqa" and dtype == torch.bfloat16:
+        return -(-b * h * n // 4) * 4 + 2 * MAX_ROW_SPLITS * b * j * d
+    return b * h * n + 2 * b * h * j * d
+
+
 def attention_backward_kernel(kind: str, q, k, v, bias, out, g, lse):
     """Launch the backward kernel; returns (dq, dk, dv) in the inputs' dtype."""
     bias = _check(kind, q, k, v, bias)
@@ -156,7 +171,8 @@ def attention_backward_kernel(kind: str, q, k, v, bias, out, g, lse):
             or lse is None or tuple(lse.shape) != (b, h, n):
         raise ValueError(f"{kind}: output, cotangent or lse do not match q {tuple(q.shape)}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    scratch = torch.empty(b * h * n + 2 * b * h * j * d, device=q.device, dtype=torch.float32)
+    scratch = torch.empty(backward_scratch_floats(kind, q.dtype, b, h, n, j), device=q.device,
+                          dtype=torch.float32)
     kernels.launch(f"{kind}_backward", q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
                    out.data_ptr(), g.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                    dv.data_ptr(), scratch.data_ptr(), b, h, n, j, d,

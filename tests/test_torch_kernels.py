@@ -95,6 +95,24 @@ def test_library_name_tracks_source_hash(tmp_path, monkeypatch):
     assert kernels.library_path() != before
 
 
+@pytest.mark.parametrize("b,h,n,j", [(16, 8, 1024, 1025), (2, 8, 100, 101), (3, 1, 5, 7),
+                                     (8193, 8, 16, 17)])
+def test_backward_scratch_is_sized_by_kind(b, h, n, j):
+    """The bf16 multi-query backward keeps D (rounded up to 4 floats) and at
+    most 4 float32 dk/dv slices per sample; the other kernels one slice per
+    (sample, head)."""
+    per_head = b * h * n + 2 * b * h * j * 64
+    for kind in ("mqa", "mha"):
+        assert tflash.backward_scratch_floats(kind, torch.float32, b, h, n, j) == per_head
+    assert tflash.backward_scratch_floats("mha", torch.bfloat16, b, h, n, j) == per_head
+    got = tflash.backward_scratch_floats("mqa", torch.bfloat16, b, h, n, j)
+    delta = -(-b * h * n // 4) * 4
+    assert delta % 4 == 0 and delta >= b * h * n
+    assert got == delta + 2 * tflash.MAX_ROW_SPLITS * b * j * 64
+    src = open(os.path.join(kernels.CSRC_DIR, "flash_attention.cu")).read()
+    assert f"constexpr int kMaxRowSplits = {tflash.MAX_ROW_SPLITS};" in src
+
+
 def test_c_signatures_declare_pointer_width_arguments():
     for name, argtypes in kernels.SIGNATURES.items():
         assert argtypes[-1] is ctypes.c_void_p, f"{name}: the stream must be a pointer"
@@ -164,25 +182,36 @@ def _attention_case(cuda, dtype, kind, b, n, j, with_bias, seed=5):
     return q, k, v, g, bias
 
 
+# (n, j) of the bf16 multi-query kernels' edges: n = 64 (a block's 128 rows
+# span two heads), n = 100 (a ragged row block across a head boundary), 256
+# and 1024; j = n + 1 (a lone key in the last tile) and j one short of
+# filling its last tile; each without and with the bias
+MQA_EDGES = [(64, 65), (64, 127), (100, 101), (100, 191), (256, 257), (256, 319), (1024, 1025),
+             (1024, 1087)]
 ATTN_BWD_CASES = [("mqa", 2, 64, 65, False), ("mqa", 2, 1024, 1025, False),
                   ("mqa", 2, 100, 130, True), ("mha", 2, 1024, 259, False),
                   ("mha", 2, 256, 261, True), ("mha", 2, 100, 7, True)]
+ATTN_BWD_CASES += [("mqa", 2, n, j, bias) for n, j in MQA_EDGES for bias in (False, True)
+                   if ("mqa", 2, n, j, bias) not in ATTN_BWD_CASES]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kind,b,n,j,with_bias", ATTN_BWD_CASES)
 def test_attention_backward_kernels_match_plain_on_card(cuda, dtype, kind, b, n, j, with_bias):
-    """Forward (with the bias and the log-sum-exp) and backward kernels
-    against the plain versions: bf16 within 2^-6 of the largest output (P
-    and dS are rounded to bf16 as tensor-core operands, and D comes from the
-    stored bf16 O), float32 within 2e-5 relative."""
+    """Forward (with the bias, with and without the log-sum-exp) and
+    backward kernels against the plain versions: bf16 within 2^-6 of the
+    largest output (P and dS are rounded to bf16 as tensor-core operands,
+    and D comes from the stored bf16 O), float32 within 2e-5 relative; the
+    forward gives the same bits whether or not it writes the log-sum-exp."""
     q, k, v, g, bias = _attention_case(cuda, dtype, kind, b, n, j, with_bias)
     plain, plain_bwd = tflash._PLAIN[kind]
+    bare, none = tflash.attention_forward_kernel(kind, q, k, v, bias)
     out, lse = tflash.attention_forward_kernel(kind, q, k, v, bias, with_lse=True)
     grads = tflash.attention_backward_kernel(kind, q, k, v, bias, out, g, lse)
     refs = (plain(q, k, v, attn_bias=bias), *plain_bwd(q, k, v, g, attn_bias=bias))
     torch.cuda.synchronize()
+    assert none is None and torch.equal(bare, out)
     for name, got, ref in zip(("out", "dq", "dk", "dv"), (out, *grads), refs):
         assert got.dtype == ref.dtype and got.shape == ref.shape, name
         err = float((got.float() - ref.float()).abs().max())
@@ -190,6 +219,33 @@ def test_attention_backward_kernels_match_plain_on_card(cuda, dtype, kind, b, n,
     s = torch.einsum("bhnd,bjd->bhnj" if kind == "mqa" else "bhnd,bhjd->bhnj", q.float(), k.float())
     ref_lse = torch.logsumexp(s if bias is None else s + bias, dim=-1)
     assert float((lse - ref_lse).abs().max()) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_mqa_bf16_kernels_launch_from_a_fresh_thread_on_card(cuda):
+    """A thread with no current CUDA context (as autograd's backward threads
+    may be) launches the multi-query kernels, whose tensor maps the CUDA driver
+    encodes on the host."""
+    import threading
+
+    q, k, v, g, _ = _attention_case(cuda, torch.bfloat16, "mqa", 2, 64, 65, False)
+    got, errors = [], []
+
+    def run():
+        try:
+            out, lse = tflash.attention_forward_kernel("mqa", q, k, v, None, with_lse=True)
+            got.extend([out, *tflash.attention_backward_kernel("mqa", q, k, v, None, out, g, lse)])
+        except RuntimeError as e:
+            errors.append(e)
+
+    worker = threading.Thread(target=run)
+    worker.start()
+    worker.join()
+    assert not errors, errors
+    refs = (tflash.mqa_plain(q, k, v), *tflash.mqa_bwd_plain(q, k, v, g))
+    torch.cuda.synchronize()
+    for name, a, r in zip(("out", "dq", "dk", "dv"), got, refs):
+        assert float((a.float() - r.float()).abs().max()) <= _tol(torch.bfloat16, r.float()), name
 
 
 @pytest.mark.cuda
