@@ -27,8 +27,8 @@ Phases, one line each with elapsed seconds; any failure exits non-zero:
 8. a measurement, not a check: the host time of 5 guided DDIM steps per
    stage, and a torch.profiler trace of them for the device's busy time and
    its largest kernels, and the device ms per step of each attention
-   kernel family (the wgmma multi-query kernels, the mma.sync kernels, the
-   dk/dv slice sum).
+   kernel family (the wgmma multi-query kernels, the wgmma multi-head
+   kernels, the float32 attention_ kernels, the dk/dv slice sum).
 9. record the training step's kernel shapes: one step of both stages at
    batch 16 with hooks on the modules that call the kernels.
 10. backward kernels against their plain versions at those shapes, in
@@ -125,25 +125,33 @@ EXP_PER_SM_CLOCK = 16
 SM_CLOCK_HZ = None
 SM_COUNT = None
 
+# kernel -> (source, the TPU kernel it replaces, the design its bf16 calls
+# launch: csrc/ kernel names)
 KERNEL_INFO = {
     "mqa_forward": ("minimagen_tpu_torch/csrc/flash_attention.cu",
-                    "minimagen_tpu/ops/flash_attention.py:92"),
+                    "minimagen_tpu/ops/flash_attention.py:92",
+                    "mqa_fwd_hopper_kernel: TMA ring, wgmma, rows across heads"),
     "mha_forward": ("minimagen_tpu_torch/csrc/flash_attention.cu",
-                    "minimagen_tpu/ops/flash_attention.py:97"),
+                    "minimagen_tpu/ops/flash_attention.py:97 and :349",
+                    "mha_fwd_hopper_kernel: TMA ring, wgmma, per-head K/V, narrow tail first, "
+                    "row blocks of a head in turn"),
     "group_norm_forward": ("minimagen_tpu_torch/csrc/group_norm.cu",
-                           "minimagen_tpu/ops/group_norm.py:89"),
+                           "minimagen_tpu/ops/group_norm.py:89", "group_partial/apply_kernel"),
     "depth_to_space_bias": ("minimagen_tpu_torch/csrc/depth_to_space.cu",
-                            "minimagen_tpu/ops/stem_conv.py:146"),
+                            "minimagen_tpu/ops/stem_conv.py:146", "depth_to_space_bias_kernel"),
 }
 BACKWARD_INFO = {
     "mqa_backward": ("minimagen_tpu_torch/csrc/flash_attention.cu",
-                     "minimagen_tpu/ops/flash_attention.py:174"),
+                     "minimagen_tpu/ops/flash_attention.py:174",
+                     "mqa_bwd_dq/dkdv_hopper_kernel: TMA ring, wgmma, dk/dv summed over heads"),
     "mha_backward": ("minimagen_tpu_torch/csrc/flash_attention.cu",
-                     "minimagen_tpu/ops/flash_attention.py:394"),
+                     "minimagen_tpu/ops/flash_attention.py:394",
+                     "mha_bwd_dq/dkdv_hopper_kernel: TMA ring, wgmma, per-head K/V, narrow tail, "
+                     "bf16 dk/dv from registers"),
     "group_norm_backward": ("minimagen_tpu_torch/csrc/group_norm.cu",
-                            "minimagen_tpu/ops/group_norm.py:156"),
+                            "minimagen_tpu/ops/group_norm.py:156",
+                            "gn_bwd_partial/fold/param/apply_kernel"),
 }
-REPLACES = {"mha_forward": "minimagen_tpu/ops/flash_attention.py:97 and :349"}
 # the default cascade: captions served, training batch (train.py's
 # --BATCH_SIZE) and steps, and its caption length (--MAX_NUM_WORDS)
 DEFAULT_CAPTIONS = 4
@@ -1288,11 +1296,11 @@ def kernel_entries(rows, launches):
     paths (lite sampling and learning, default serving and training), each
     counted from 0."""
     entries = []
-    for name, (source, replaces) in {**KERNEL_INFO, **BACKWARD_INFO}.items():
+    for name, (source, replaces, design) in {**KERNEL_INFO, **BACKWARD_INFO}.items():
         bf16 = [r for r in rows if r["kernel"] == name and r["dtype"] == "bfloat16"]
         top = max(bf16, key=lambda r: r["bound_ms"])
-        entry = dict(name=name, route="cuda", source=source,
-                     replaces=REPLACES.get(name, replaces), launches=launches[name],
+        entry = dict(name=name, route="cuda", source=source, design=design, replaces=replaces,
+                     launches=launches[name],
                      max_abs_err=top["max_abs_err"], ms=top["ms"],
                      plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
                      bound_by=top["bound_by"], library_ms=top["library_ms"])

@@ -73,10 +73,11 @@ def device_ms(fn, reps, inner=20):
     return statistics.median(times)
 
 
-# attention kernel families by name: the Hopper multi-query kernels, the
-# mma.sync kernels (multi-head, and in older trees multi-query too) and the
-# dk/dv slice sum
-ATTENTION_FAMILIES = {"mqa (wgmma)": "mqa_", "attention (mma.sync)": "attention_",
+# attention kernel families by name tag: the Hopper multi-query and
+# multi-head kernels, the attention_ kernels (the float32 ones; in older
+# trees the bf16 mma.sync kernels) and the dk/dv slice sum
+ATTENTION_FAMILIES = {"mqa (wgmma)": "mqa_", "mha (wgmma)": "mha_",
+                      "attention_ (float32; older trees' mma.sync)": "attention_",
                       "kv_reduce": "kv_reduce"}
 
 

@@ -9,6 +9,7 @@
 //     q (b, h, n, d), per-head k, v (b, h, j, d)
 //   _mqa_bwd_kernel (:174, launched by _mqa_bwd_pallas) -> mmt_mqa_backward
 //   _mha_bias_bwd_kernel (:394, launched by _mha_bias_bwd_pallas) -> mmt_mha_backward
+//     (also the unbiased _mha_bwd, :320, which the JAX package leaves to XLA)
 // An optional float32 bias row per sample, (b, j), is added to the logits:
 // the mask-derived bias of _mask_bias (0 keep, -1e30 drop). A null pointer
 // means no bias, the U-Net's path. The forward optionally writes the row's
@@ -17,21 +18,11 @@
 // self-attention; 2 or 4 time tokens + 256 text tokens + 1 null for
 // cross-attention), so the last K/V tile is ragged and masked here.
 //
-// What bounds it on the card: the forward is 4*b*h*n*j*d operations, the
-// backward 10*b*h*n*j*d (five products, S recomputed), over (q, k, v, o [,
-// do, dq, dk, dv]) bytes, so at the main path's shapes (n, j ~ 1024) both
-// are compute-bound, and the products belong on the tensor cores.
-//
-// bfloat16 multi-query (the U-Net's self-attention, the main path): a
-// Hopper design, mqa_*_hopper_kernel below. One K/V head serves all h heads
-// of a sample, so the sample's queries are one (h * n, 64) matrix and a
-// block takes 64 rows per consumer warpgroup across head boundaries: K/V is
-// fetched once per 128 or 256 rows instead of once per 64 rows of one head,
-// and a block is full at n = 64. Each block is warp-specialised: one thread
-// of a producer warpgroup keeps (64 keys x 64) bf16 tiles in flight into a
-// ring of 4 stages with TMA (128-byte swizzle, 128-byte rows, completion on
-// mbarriers; the consumers free a stage with an arrive), and the consumer
-// warpgroups run wgmma m64n64k16: S = Q K^T with both operands in shared
+// Every bfloat16 call runs a Hopper kernel: warp-specialised blocks, one
+// thread of a producer warpgroup keeping (64 rows x 64) bf16 tiles in flight
+// into a ring of 4 stages with TMA (128-byte swizzle, 128-byte rows,
+// completion on mbarriers; the consumers free a stage with an arrive), and
+// consumer warpgroups running wgmma: S = Q K^T with both operands in shared
 // memory, O += P V with P from registers (the float32 accumulator layout
 // rounded to bf16 is the register A layout) and V through an MN-major
 // descriptor. A consumer runs one tile behind on the tensor cores: it issues
@@ -39,48 +30,84 @@
 // exponentials of tile i + 1 while O += P V runs; the last tile is peeled
 // off so no product is issued under a branch (ptxas then keeps the wgmmas
 // asynchronous). The lean softmax instance (no bias, no mask) runs on every
-// full unbiased tile; O is rescaled only when a row's max moved. Forward:
-// four consumer warpgroups (256 rows) where that still fills the SMs, else
-// two. The backward is the two passes described below, on the same ring and
-// wgmma: pass 1 takes 128 rows across heads; pass 2 owns 128 keys of a
-// sample (K and V loaded once), walks the sample's rows of every head and
-// sums dk/dv in registers over the heads, so no per-head float32 slices
-// exist; to fill the last wave the rows split into 1, 2 or 4 fixed chunks
-// (row_splits), whose float32 slices kv_reduce_kernel sums in chunk order.
-// Bound at (16, 8, 1024, 1025): the forward's 34.4 GFLOP take 0.035 ms at
-// 989 TFLOP/s and its 134M exponentials 0.033 ms on the SFUs (16 per SM per
-// clock at 1.98 GHz), so tensor cores and exponentials are two rooflines of
-// the same height, which is why the exponentials overlap the products. The
-// backward (seven products, S and dP rebuilt in both passes) is 0.12 ms of
-// tensor work.
+// full unbiased tile; O is rescaled only when a row's max moved. The online
+// softmax keeps a float32 running max and row sum; P is rounded to bf16 as
+// the A operand of P V (the TPU kernel's p.astype(v.dtype)) and O is divided
+// by the row sum once at the end (its late divide).
 //
-// bfloat16 multi-head (cross-attention): FlashAttention-2 style on mma.sync
-// m16n8k16. A block of 4 warps owns 64 query rows (16 per warp, held as bf16
-// A fragments); K/V stream through shared memory in tiles of 64 keys, read
-// with ldmatrix (V transposed) from rows padded to 72 elements so the reads
-// are conflict-free. S = Q K^T accumulates in float32 registers; the online
-// softmax keeps a float32 running max and row sum per row, P = exp(S - max)
-// is rounded to bf16 as the A operand of P V (the TPU kernel's
-// p.astype(v.dtype)), and the division by the row sum happens once at the
-// end (its late divide). No cp.async pipelining yet: loads and products of a
-// tile do not overlap.
-//
-// The backward is two passes, because the TPU kernel's way of summing dk/dv
-// (a revisited output block across its sequential grid) has no counterpart
-// when blocks run in no order:
-//   1. Q-major (one block per 64 query rows): D = rowsum(dO * O) in float32
-//      (from the stored O, one bf16 rounding away from the TPU kernel's
-//      sum(p * dp)), then over all key tiles P = exp(S + bias - lse),
-//      dP = dO V^T, dS = P (dP - D), dq += dS K.
-//   2. K/V-major (one block per 64 keys and (sample, head)): over the n query
-//      rows of that head, P^T and dS^T rebuilt the same way, dv += P^T dO,
-//      dk += dS^T Q, into a float32 buffer of one slice per (sample, head).
-//   Then a small pass sums the slices over the heads that share a K/V head
-//   (multi-query in float32: all h; multi-head: just the one) in head order
-//   and casts.
+// The backward is two passes, because the TPU kernels' way of summing dk/dv
+// (a revisited output block across their sequential grid) has no
+// counterpart when blocks run in no order:
+//   1. Q-major: D = rowsum(dO * O) in float32 (from the stored O, one bf16
+//      rounding away from the TPU kernel's sum(p * dp)), then over all key
+//      tiles P = exp(S + bias - lse), dP = dO V^T, dS = P (dP - D),
+//      dq += dS K.
+//   2. K-major: a block owns key tiles (K and V loaded once) and walks the
+//      query rows: S^T = K Q^T and dP^T = V dO^T rebuilt, dv += P^T dO,
+//      dk += dS^T Q, in registers.
 // No atomics: every sum is taken in a fixed order, so two runs give the same
 // bits. P and dS are rounded to bf16 as the A operands of the last three
 // products (the TPU kernel rounds dS for dq and keeps float32 for dk/dv).
+//
+// bfloat16 multi-query (self-attention), mqa_*_hopper_kernel. One K/V head
+// serves all h heads of a sample, so the sample's queries are one (h * n, 64)
+// matrix and a block takes 64 rows per consumer warpgroup across head
+// boundaries: K/V is fetched once per 128 or 256 rows, and a block is full at
+// n = 64. Forward: four consumer warpgroups (256 rows) where that still fills
+// the SMs, else two. Pass 1 takes 128 rows across heads; pass 2 owns 128
+// keys of a sample, walks the sample's rows of every head and sums dk/dv in
+// registers over the heads; to fill the last wave the rows split into 1, 2
+// or 4 fixed chunks (row_splits), whose float32 slices kv_reduce_kernel sums
+// in chunk order. Bound at (16, 8, 1024, 1025): the forward's 34.4 GFLOP
+// take 0.035 ms at 989 TFLOP/s and its 134M exponentials 0.033 ms on the
+// SFUs (16 per SM per clock at 1.98 GHz), two rooflines of the same height,
+// which is why the exponentials overlap the products; the backward (seven
+// products, S and dP rebuilt in both passes) is 0.12 ms of tensor work.
+//
+// bfloat16 multi-head (cross-attention), mha_*_hopper_kernel. Per (sample,
+// head) it is multi-query with one head: the n query rows of (b, h) are
+// contiguous, a block owns 64 of them per consumer warpgroup, and its
+// producer streams that head's K/V (tensor-map coordinate b * heads + head;
+// the bias row is the sample's). The grid stays (tiles, heads, batch), so
+// batch * heads may pass 65535. Bound at (16, 8, 1024, 259), the lite
+// path's: the forward's 8.7 GFLOP take 0.0088 ms of tensor time and its 34M
+// exponentials 0.0081 ms, but its ~42 MB of q, k, v and o take 0.0125 ms:
+// it is byte-bound, so what counts is keeping every SM streaming (enough
+// blocks in flight, loads ahead of the products) and wasting no tensor work
+// on padding. The backward moves 0.0253 ms of bytes against 0.031 ms of
+// tensor work with S and dP rebuilt in both passes. What the design does:
+//   - The narrow ragged tail. At j = 259 or 261 the last 64-key tile holds 3
+//     or 5 keys, ~19% of the tensor work if computed in full. The tail is
+//     taken first (tile (j - 1) / 64; TMA zero-fills the box past j and those
+//     logits are masked to -inf before the max) and, where it holds at most 16
+//     keys, its S (and dP) is one m64n16 product per k16 step and its P V
+//     (dq += dS K) one k16 step instead of four; the full tiles then run the
+//     multi-query loop. Tail width is a template parameter (16 or 64), not a
+//     branch around the products; where a branch does hold products (no
+//     full tile, the tail's owner in pass 2) it holds whole fenced, committed
+//     and waited groups, and ptxas keeps every wgmma asynchronous.
+//   - Blocks that fill the card at every n on the path (n = 1024, 256, 64):
+//     the forward takes the most consumer warpgroups of {4, 2, 1} that
+//     divides the head's 64-row tiles (so no warpgroup is idle by design)
+//     and still gives 15/16 of the SMs a block, else 1; pass 1 likewise of
+//     {2, 1}. One warpgroup is a 256-thread block, two of which fit an SM.
+//   - A forward block takes up to 4 row blocks of its head in turn (as many
+//     as still fill the card), Q double-buffered and the ring running on
+//     across them, so the next row block's loads overlap the current one's
+//     products and stores: at (16, 8, 1024, 259) each block walks all 1024
+//     rows of one head, one wave of 128 blocks.
+//   - Pass 2 owns the full key tiles, two per block where their count is
+//     even, and writes bf16 dk/dv straight from registers: no heads share
+//     K/V, so no float32 per-head slices exist. Only where row_splits splits
+//     the rows to fill the last wave does it keep float32 slices, summed in
+//     fixed order by kv_reduce_kernel. A narrow tail (<= 16 keys) rides with
+//     the warpgroup that owns the last full tile: per row tile it computes
+//     S and dP of the tail as m64n16 products, stages P and dS (bf16) in
+//     shared memory, and accumulates dv^T += dO^T P and dk^T += Q^T dS with
+//     dO and Q read M-major, so no block walks the n rows for 3-5 keys.
+//   - With the bias, pass 1's full tiles take each thread's 16 bias values
+//     once and mask nothing (ds_tile_biased): the masked per-element loads
+//     of the edge instance made the biased backward 1.5x the unbiased one.
 //
 // float32 (tests and the float32 reference run): the same passes on the
 // CUDA cores, one thread per query row (forward, dq) or per key (dk/dv).
@@ -346,393 +373,16 @@ __global__ void __launch_bounds__(kKvKeys)
   }
 }
 
-// ---- bfloat16 on the tensor cores ------------------------------------------
-constexpr int kTcRows = 64;       // query rows per block: 4 warps x 16
-constexpr int kTcKeys = 64;       // keys per tile
-constexpr int kTcThreads = 128;
-constexpr int kTcStride = kHeadDim + 8;  // padded row: conflict-free ldmatrix
+// ---- bfloat16 helpers ------------------------------------------------------
 constexpr float kLog2e = 1.4426950408889634f;
-
-using Tile = __nv_bfloat16[kTcStride];
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// d += a * b for one m16n8k16 tile: bf16 inputs, float32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Rows [0, valid) of a row-major (rows, 64) bf16 matrix into a padded
-// shared tile of kRows rows, zero-filling the rest; 16-byte moves.
-template <int kRows>
-__device__ __forceinline__ void load_tile(Tile* dst, const __nv_bfloat16* src, int valid) {
-  for (int e = threadIdx.x; e < kRows * (kHeadDim / 8); e += kTcThreads) {
-    const int r = e / (kHeadDim / 8), c = (e % (kHeadDim / 8)) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid) val = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(r) * kHeadDim + c);
-    *reinterpret_cast<uint4*>(&dst[r][c]) = val;
-  }
-}
-
-// Entries [0, valid) of a float row into shared memory, `fill` after them.
-__device__ __forceinline__ void load_row(float* dst, const float* src, int valid, float fill) {
-  if (threadIdx.x < kTcKeys)
-    dst[threadIdx.x] = (src != nullptr && static_cast<int>(threadIdx.x) < valid)
-                           ? src[threadIdx.x] : fill;
-}
-
-// The A fragments of this warp's 16 rows of a (64, 64) tile, 4 steps over d.
-__device__ __forceinline__ void load_a_fragments(uint32_t (&f)[kHeadDim / 16][4], const Tile* s,
-                                                 int warp, int mat, int mrow) {
-#pragma unroll
-  for (int kk = 0; kk < kHeadDim / 16; ++kk)
-    ldmatrix_x4(f[kk], &s[warp * 16 + mrow + (mat & 1) * 8][kk * 16 + (mat >> 1) * 8]);
-}
-
-// acc (16 x 64 columns) += A (16 x 64 depth) B^T for B a (64 columns, 64
-// depth) row-major shared tile: the S = Q K^T product.
-__device__ __forceinline__ void mma_abt(float (&acc)[8][4], const uint32_t (&a)[kHeadDim / 16][4],
-                                        const Tile* b_tile, int mat, int mrow) {
-#pragma unroll
-  for (int kk = 0; kk < kHeadDim / 16; ++kk) {
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      uint32_t b[4];
-      ldmatrix_x4(b, &b_tile[(np * 2 + (mat >> 1)) * 8 + mrow][kk * 16 + (mat & 1) * 8]);
-      mma_bf16(acc[np * 2], a[kk], b[0], b[1]);
-      mma_bf16(acc[np * 2 + 1], a[kk], b[2], b[3]);
-    }
-  }
-}
-
-// acc (16 x 64 d) += P B for P the float32 (16 x 64 depth) accumulator tile
-// `p` rounded to bf16 and B a (64 depth, 64 d) row-major shared tile: the
-// O = P V product.
-__device__ __forceinline__ void mma_pb(float (&acc)[8][4], const float (&p)[8][4],
-                                       const Tile* b_tile, int mat, int mrow) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint32_t pa[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
-                            pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-                            pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                            pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-#pragma unroll
-    for (int dp = 0; dp < kHeadDim / 16; ++dp) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, &b_tile[kk * 16 + (mat & 1) * 8 + mrow][(dp * 2 + (mat >> 1)) * 8]);
-      mma_bf16(acc[dp * 2], pa, b[0], b[1]);
-      mma_bf16(acc[dp * 2 + 1], pa, b[2], b[3]);
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kTcThreads)
-    attention_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                              const __nv_bfloat16* __restrict__ k,
-                              const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
-                              __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int kv_group,
-                              int heads, int n, int j) {
-  __shared__ __align__(16) Tile qs[kTcRows];
-  __shared__ __align__(16) Tile ks[kTcKeys];
-  __shared__ __align__(16) Tile vs[kTcKeys];
-  __shared__ float bs[kTcKeys];
-
-  const int bh = sample_head();
-  const int q0 = blockIdx.x * kTcRows;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;        // accumulator row / column pair
-  const int mat = lane >> 3, mrow = lane & 7;   // ldmatrix: matrix and row this lane addresses
-  const size_t kv_base = static_cast<size_t>(bh / kv_group) * j * kHeadDim;
-  const float* brow = bias_row(bias, bh, heads, j);
-
-  load_tile<kTcRows>(qs, q + (static_cast<size_t>(bh) * n + q0) * kHeadDim, n - q0);
-  __syncthreads();
-  uint32_t qf[kHeadDim / 16][4];  // A fragments of this warp's 16 rows, 4 steps over d
-  load_a_fragments(qf, qs, warp, mat, mrow);
-
-  float of[kHeadDim / 8][4] = {};  // output accumulator, 8 column tiles over d
-  float row_max[2] = {-INFINITY, -INFINITY};  // rows g and g + 8
-  float row_sum[2] = {0.f, 0.f};              // this thread's share of the row sums
-
-  for (int k0 = 0; k0 < j; k0 += kTcKeys) {
-    const int kt = min(kTcKeys, j - k0);
-    __syncthreads();  // the previous tile is consumed
-    load_tile<kTcKeys>(ks, k + kv_base + static_cast<size_t>(k0) * kHeadDim, kt);
-    load_tile<kTcKeys>(vs, v + kv_base + static_cast<size_t>(k0) * kHeadDim, kt);
-    load_row(bs, brow == nullptr ? nullptr : brow + k0, kt, 0.f);
-    __syncthreads();
-
-    float sf[kTcKeys / 8][4] = {};  // S = Q K^T, 8 column tiles of 8 keys
-    mma_abt(sf, qf, ks, mat, mrow);
-#pragma unroll
-    for (int nt = 0; nt < kTcKeys / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + 2 * t + (e & 1);
-        sf[nt][e] = col < kt ? sf[nt][e] + bs[col] : -INFINITY;  // ragged tail: keys past j
-      }
-
-    float tile_max[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int nt = 0; nt < kTcKeys / 8; ++nt) {
-      tile_max[0] = fmaxf(tile_max[0], fmaxf(sf[nt][0], sf[nt][1]));
-      tile_max[1] = fmaxf(tile_max[1], fmaxf(sf[nt][2], sf[nt][3]));
-    }
-    float correction[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {  // the 4 threads of a quad share a row
-      tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 1));
-      tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 2));
-      const float new_max = fmaxf(row_max[r], tile_max[r]);  // finite: key k0 is valid
-      correction[r] = exp2f((row_max[r] - new_max) * kLog2e);  // 0 on the first tile
-      row_max[r] = new_max;
-      row_sum[r] *= correction[r];
-    }
-#pragma unroll
-    for (int nt = 0; nt < kHeadDim / 8; ++nt) {
-      of[nt][0] *= correction[0];
-      of[nt][1] *= correction[0];
-      of[nt][2] *= correction[1];
-      of[nt][3] *= correction[1];
-    }
-#pragma unroll
-    for (int nt = 0; nt < kTcKeys / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        sf[nt][e] = exp2f((sf[nt][e] - row_max[e >> 1]) * kLog2e);  // 0 for masked keys
-        row_sum[e >> 1] += sf[nt][e];
-      }
-    }
-    mma_pb(of, sf, vs, mat, mrow);  // O += P V
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float total = row_sum[r];
-    total += __shfl_xor_sync(0xffffffffu, total, 1);
-    total += __shfl_xor_sync(0xffffffffu, total, 2);
-    const int row = q0 + warp * 16 + g + r * 8;
-    if (row < n) {
-      __nv_bfloat16* op = o + (static_cast<size_t>(bh) * n + row) * kHeadDim;
-#pragma unroll
-      for (int nt = 0; nt < kHeadDim / 8; ++nt)
-        *reinterpret_cast<uint32_t*>(op + nt * 8 + 2 * t) =
-            pack_bf16(of[nt][2 * r] / total, of[nt][2 * r + 1] / total);
-      if (lse != nullptr && t == 0)
-        lse[static_cast<size_t>(bh) * n + row] = row_max[r] + logf(total);
-    }
-  }
-}
-
-// Pass 1 on the tensor cores: D for the block's 64 query rows, then
-// dq = sum over key tiles of dS K.
-__global__ void __launch_bounds__(kTcThreads)
-    attention_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                                 const __nv_bfloat16* __restrict__ k,
-                                 const __nv_bfloat16* __restrict__ v,
-                                 const float* __restrict__ bias,
-                                 const __nv_bfloat16* __restrict__ o,
-                                 const __nv_bfloat16* __restrict__ dout,
-                                 const float* __restrict__ lse, __nv_bfloat16* __restrict__ dq,
-                                 float* __restrict__ delta, int kv_group, int heads, int n,
-                                 int j) {
-  __shared__ __align__(16) Tile qs[kTcRows];
-  __shared__ __align__(16) Tile dos[kTcRows];
-  __shared__ __align__(16) Tile ks[kTcKeys];
-  __shared__ __align__(16) Tile vs[kTcKeys];
-  __shared__ float bs[kTcKeys];
-  __shared__ float lse_s[kTcRows];
-  __shared__ float d_s[kTcRows];
-
-  const int bh = sample_head();
-  const int q0 = blockIdx.x * kTcRows;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int mat = lane >> 3, mrow = lane & 7;
-  const size_t kv_base = static_cast<size_t>(bh / kv_group) * j * kHeadDim;
-  const size_t rows_base = (static_cast<size_t>(bh) * n + q0) * kHeadDim;
-  const float* brow = bias_row(bias, bh, heads, j);
-
-  load_tile<kTcRows>(qs, q + rows_base, n - q0);
-  load_tile<kTcRows>(dos, dout + rows_base, n - q0);
-  __syncthreads();
-  {  // D = rowsum(dO * O): two threads per row, 32 columns each
-    const int r = threadIdx.x >> 1, half = threadIdx.x & 1;
-    const int row = q0 + r;
-    float acc = 0.f;
-    if (row < n) {
-      const __nv_bfloat16* op = o + rows_base + static_cast<size_t>(r) * kHeadDim + half * 32;
-#pragma unroll
-      for (int c = 0; c < 32; c += 8) {
-        const uint4 ov = *reinterpret_cast<const uint4*>(op + c);
-        const __nv_bfloat16* oe = reinterpret_cast<const __nv_bfloat16*>(&ov);
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          acc = fmaf(__bfloat162float(dos[r][half * 32 + c + e]), __bfloat162float(oe[e]), acc);
-      }
-    }
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    if (half == 0) {
-      d_s[r] = acc;
-      lse_s[r] = row < n ? lse[static_cast<size_t>(bh) * n + row] : INFINITY;
-      if (row < n) delta[static_cast<size_t>(bh) * n + row] = acc;
-    }
-  }
-  __syncthreads();
-  uint32_t qf[kHeadDim / 16][4], dof[kHeadDim / 16][4];
-  load_a_fragments(qf, qs, warp, mat, mrow);
-  load_a_fragments(dof, dos, warp, mat, mrow);
-  float lse_r[2], d_r[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    lse_r[r] = lse_s[warp * 16 + g + r * 8];
-    d_r[r] = d_s[warp * 16 + g + r * 8];
-  }
-
-  float dqf[kHeadDim / 8][4] = {};
-  for (int k0 = 0; k0 < j; k0 += kTcKeys) {
-    const int kt = min(kTcKeys, j - k0);
-    __syncthreads();
-    load_tile<kTcKeys>(ks, k + kv_base + static_cast<size_t>(k0) * kHeadDim, kt);
-    load_tile<kTcKeys>(vs, v + kv_base + static_cast<size_t>(k0) * kHeadDim, kt);
-    load_row(bs, brow == nullptr ? nullptr : brow + k0, kt, 0.f);
-    __syncthreads();
-
-    float sf[kTcKeys / 8][4] = {};   // S = Q K^T
-    float dpf[kTcKeys / 8][4] = {};  // dP = dO V^T
-    mma_abt(sf, qf, ks, mat, mrow);
-    mma_abt(dpf, dof, vs, mat, mrow);
-#pragma unroll
-    for (int nt = 0; nt < kTcKeys / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + 2 * t + (e & 1);
-        const float p =
-            col < kt ? exp2f((sf[nt][e] + bs[col] - lse_r[e >> 1]) * kLog2e) : 0.f;
-        sf[nt][e] = p * (dpf[nt][e] - d_r[e >> 1]);  // dS
-      }
-    mma_pb(dqf, sf, ks, mat, mrow);  // dq += dS K
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + warp * 16 + g + r * 8;
-    if (row < n) {
-      __nv_bfloat16* dp = dq + (static_cast<size_t>(bh) * n + row) * kHeadDim;
-#pragma unroll
-      for (int nt = 0; nt < kHeadDim / 8; ++nt)
-        *reinterpret_cast<uint32_t*>(dp + nt * 8 + 2 * t) =
-            pack_bf16(dqf[nt][2 * r], dqf[nt][2 * r + 1]);
-    }
-  }
-}
-
-// Pass 2 on the tensor cores: a block owns 64 keys of (sample, head) bh (4
-// warps x 16 keys, K and V held as A fragments) and loops over that head's
-// query rows in tiles of 64: S^T = K Q^T, dP^T = V dO^T, then
-// dv += P^T dO and dk += dS^T Q, into the float32 slice bh.
-__global__ void __launch_bounds__(kTcThreads)
-    attention_bwd_dkdv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                                   const __nv_bfloat16* __restrict__ k,
-                                   const __nv_bfloat16* __restrict__ v,
-                                   const float* __restrict__ bias,
-                                   const __nv_bfloat16* __restrict__ dout,
-                                   const float* __restrict__ lse,
-                                   const float* __restrict__ delta, float* __restrict__ dk_acc,
-                                   float* __restrict__ dv_acc, int kv_group, int heads, int n,
-                                   int j) {
-  __shared__ __align__(16) Tile ks[kTcKeys];
-  __shared__ __align__(16) Tile vs[kTcKeys];
-  __shared__ __align__(16) Tile qs[kTcRows];
-  __shared__ __align__(16) Tile dos[kTcRows];
-  __shared__ float bs[kTcKeys];
-  __shared__ float lse_s[kTcRows];
-  __shared__ float d_s[kTcRows];
-
-  const int bh = sample_head();
-  const int k0 = blockIdx.x * kTcKeys;
-  const int kt = min(kTcKeys, j - k0);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int mat = lane >> 3, mrow = lane & 7;
-  const size_t kv_base = static_cast<size_t>(bh / kv_group) * j * kHeadDim;
-  const float* brow = bias_row(bias, bh, heads, j);
-
-  load_tile<kTcKeys>(ks, k + kv_base + static_cast<size_t>(k0) * kHeadDim, kt);
-  load_tile<kTcKeys>(vs, v + kv_base + static_cast<size_t>(k0) * kHeadDim, kt);
-  load_row(bs, brow == nullptr ? nullptr : brow + k0, kt, 0.f);
-  __syncthreads();
-  uint32_t kf[kHeadDim / 16][4], vf[kHeadDim / 16][4];
-  load_a_fragments(kf, ks, warp, mat, mrow);
-  load_a_fragments(vf, vs, warp, mat, mrow);
-  const float b_key[2] = {bs[warp * 16 + g], bs[warp * 16 + g + 8]};
-
-  float dkf[kHeadDim / 8][4] = {}, dvf[kHeadDim / 8][4] = {};
-  const size_t q_base = static_cast<size_t>(bh) * n;
-  for (int r0 = 0; r0 < n; r0 += kTcRows) {
-    const int rt = min(kTcRows, n - r0);
-    __syncthreads();
-    load_tile<kTcRows>(qs, q + (q_base + r0) * kHeadDim, rt);
-    load_tile<kTcRows>(dos, dout + (q_base + r0) * kHeadDim, rt);
-    load_row(lse_s, lse + q_base + r0, rt, INFINITY);  // rows past n: p = 0
-    load_row(d_s, delta + q_base + r0, rt, 0.f);
-    __syncthreads();
-
-    float st[kTcRows / 8][4] = {};   // S^T = K Q^T: rows are keys, columns query rows
-    float dpt[kTcRows / 8][4] = {};  // dP^T = V dO^T
-    mma_abt(st, kf, qs, mat, mrow);
-    mma_abt(dpt, vf, dos, mat, mrow);
-#pragma unroll
-    for (int nt = 0; nt < kTcRows / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + 2 * t + (e & 1);
-        const float p = exp2f((st[nt][e] + b_key[e >> 1] - lse_s[col]) * kLog2e);
-        st[nt][e] = p;
-        dpt[nt][e] = p * (dpt[nt][e] - d_s[col]);  // dS^T
-      }
-    mma_pb(dvf, st, dos, mat, mrow);  // dv += P^T dO
-    mma_pb(dkf, dpt, qs, mat, mrow);  // dk += dS^T Q
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = k0 + warp * 16 + g + r * 8;
-    if (key < j) {
-      const size_t out = (static_cast<size_t>(bh) * j + key) * kHeadDim;
-#pragma unroll
-      for (int nt = 0; nt < kHeadDim / 8; ++nt) {
-        *reinterpret_cast<float2*>(dk_acc + out + nt * 8 + 2 * t) =
-            make_float2(dkf[nt][2 * r], dkf[nt][2 * r + 1]);
-        *reinterpret_cast<float2*>(dv_acc + out + nt * 8 + 2 * t) =
-            make_float2(dvf[nt][2 * r], dvf[nt][2 * r + 1]);
-      }
-    }
-  }
 }
 
 // dk/dv of K/V head i = the sum, in order, of the `parts` float32 slices
@@ -855,9 +505,10 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // Keep the compiler from moving reads or writes of an accumulator across a
 // wgmma issue or wait (the asynchronous product owns the registers between).
-__device__ __forceinline__ void fence_regs(float (&r)[32]) {
+template <int kR>
+__device__ __forceinline__ void fence_regs(float (&r)[kR]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(r[i])::"memory");
+  for (int i = 0; i < kR; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
 #define MMT_WGMMA_D32                                                                         \
@@ -890,12 +541,43 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
 }
 
+// d (64 x 16, float32) (+)= A B, both from shared memory: B K-major, A
+// K-major (kTransA 0) or M-major (kTransA 1, A's rows contiguous).
+template <int kTransA>
+__device__ __forceinline__ void wgmma_ss16(float (&d)[8], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "l"(a), "l"(b), "r"(accumulate), "n"(kTransA));
+}
+
 // acc = A B^T over the 64 columns of two K-major (64, 64) tiles: S = Q K^T,
 // dP = dO V^T, S^T = K Q^T, dP^T = V dO^T. Issued, not waited for.
 __device__ __forceinline__ void gemm_abt(float (&acc)[32], uint32_t a_tile, uint32_t b_tile) {
   const uint64_t da = tile_desc(a_tile, 16), db = tile_desc(b_tile, 16);
 #pragma unroll
   for (int kk = 0; kk < kHeadDim / 16; ++kk) wgmma_ss(acc, da + 2 * kk, db + 2 * kk, kk);
+}
+
+// acc (64 x 16) = A B^T for the first 16 rows of the K-major tile B: S and
+// dP of a narrow key tail (at most 16 keys). Issued, not waited for.
+__device__ __forceinline__ void gemm_abt(float (&acc)[8], uint32_t a_tile, uint32_t b_tile) {
+  const uint64_t da = tile_desc(a_tile, 16), db = tile_desc(b_tile, 16);
+#pragma unroll
+  for (int kk = 0; kk < kHeadDim / 16; ++kk) wgmma_ss16<0>(acc, da + 2 * kk, db + 2 * kk, kk);
+}
+
+// acc (64 x 16) += A^T B over the 64 rows of both: A a (64, 64) tile read
+// M-major (rows of the tile are the contraction, as the MN-major B of
+// gemm_pb), B a K-major (16, 64) tile staged by stage_kmajor: dv^T += dO^T P
+// and dk^T += Q^T dS of a narrow key tail. Issued, not waited for.
+__device__ __forceinline__ void gemm_atb(float (&acc)[8], uint32_t a_tile, uint32_t b_tile) {
+  const uint64_t da = tile_desc(a_tile, 1024), db = tile_desc(b_tile, 16);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_ss16<1>(acc, da + 128 * kk, db + 2 * kk, 1);
 }
 
 // acc += P B: P the (64, 64) float32 accumulator `p` as bf16 register A
@@ -906,6 +588,14 @@ __device__ __forceinline__ void gemm_pb(float (&acc)[32], const uint32_t (&pa)[4
   const uint64_t db = tile_desc(b_tile, 1024);
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc, pa[kk], db + 128 * kk);  // 16 rows = 2048 B
+}
+
+// acc += P B over one k16 step: P the (64, 16) accumulator of a narrow key
+// tail packed by pack_a, B the first 16 rows of a tile: O += P V and
+// dq += dS K of the tail. Issued, not waited for.
+__device__ __forceinline__ void gemm_pb(float (&acc)[32], const uint32_t (&pa)[1][4],
+                                        uint32_t b_tile) {
+  wgmma_rs(acc, pa[0], tile_desc(b_tile, 1024));
 }
 
 // The float32 accumulator layout of a 64 x 64 tile (d[4c + 2i + e] at row
@@ -919,6 +609,14 @@ __device__ __forceinline__ void pack_a(uint32_t (&pa)[4][4], const float (&p)[32
     pa[kk][2] = pack_bf16(p[8 * kk + 4], p[8 * kk + 5]);
     pa[kk][3] = pack_bf16(p[8 * kk + 6], p[8 * kk + 7]);
   }
+}
+
+// pack_a of a 64 x 16 accumulator: one k16 step.
+__device__ __forceinline__ void pack_a(uint32_t (&pa)[1][4], const float (&p)[8]) {
+  pa[0][0] = pack_bf16(p[0], p[1]);
+  pa[0][1] = pack_bf16(p[2], p[3]);
+  pa[0][2] = pack_bf16(p[4], p[5]);
+  pa[0][3] = pack_bf16(p[6], p[7]);
 }
 
 __device__ __forceinline__ uint32_t align_smem(const void* raw) {
@@ -956,6 +654,11 @@ __device__ __forceinline__ Ring init_barriers(uint32_t bars) {
   return ring;
 }
 
+__device__ __forceinline__ void warp_arrive(uint32_t bar) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(bar);
+}
+
 __device__ __forceinline__ void release(const Ring& ring, int s) {
   __syncwarp();
   if ((threadIdx.x & 31) == 0) mbar_arrive(ring.empty(s));
@@ -967,11 +670,12 @@ __device__ __forceinline__ void release(const Ring& ring, int s) {
 __device__ __forceinline__ void producer_registers() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
 }
+// One consumer warpgroup keeps the registers it was compiled with.
 template <int kWgs>
 __device__ __forceinline__ void consumer_registers() {
-  static_assert(kWgs == 2 || kWgs == 4, "two or four consumer warpgroups");
+  static_assert(kWgs == 1 || kWgs == 2 || kWgs == 4, "one, two or four consumer warpgroups");
   if constexpr (kWgs == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
-  else asm volatile("setmaxnreg.inc.sync.aligned.u32 112;\n");
+  else if constexpr (kWgs == 4) asm volatile("setmaxnreg.inc.sync.aligned.u32 112;\n");
 }
 
 // The producer's loop over key tiles (forward, dq): K and V of tile `it`
@@ -993,13 +697,16 @@ __device__ __forceinline__ void produce_kv(const Ring& ring, const CUtensorMap* 
 // where kEdge: a biased call or the ragged last tile), the running max and
 // this thread's share of the row sums updated, S replaced by
 // P = exp(S - max); returns in `corr` the factor the output must take.
-template <bool kEdge>
-__device__ __forceinline__ void softmax_tile(float (&s_acc)[32], float (&row_max)[2],
+// kExact: exp2((S - max) log2e) instead of the fused multiply-add with
+// -max log2e, whose rounding (~1e23 at max = -1e30) is fatal where every key
+// so far was dropped by the bias.
+template <bool kEdge, bool kExact = false, int kR = 32>  // kR 32 (64 keys) or 8 (16 keys)
+__device__ __forceinline__ void softmax_tile(float (&s_acc)[kR], float (&row_max)[2],
                                              float (&row_sum)[2], float (&corr)[2],
                                              const float* brow, int k0, int kt, int t) {
   float tile_max[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int c = 0; c < 8; ++c)
+  for (int c = 0; c < kR / 4; ++c)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       float x = s_acc[4 * c + e];
@@ -1023,8 +730,9 @@ __device__ __forceinline__ void softmax_tile(float (&s_acc)[32], float (&row_max
     neg_max[i] = -new_max * kLog2e;
   }
 #pragma unroll
-  for (int r = 0; r < 32; ++r) {
-    const float p = fast_exp2(fmaf(s_acc[r], kLog2e, neg_max[(r >> 1) & 1]));  // 0 when masked
+  for (int r = 0; r < kR; ++r) {
+    const float p = kExact ? fast_exp2((s_acc[r] - row_max[(r >> 1) & 1]) * kLog2e)
+                           : fast_exp2(fmaf(s_acc[r], kLog2e, neg_max[(r >> 1) & 1]));  // 0 when masked
     row_sum[(r >> 1) & 1] += p;
     s_acc[r] = p;
   }
@@ -1032,12 +740,13 @@ __device__ __forceinline__ void softmax_tile(float (&s_acc)[32], float (&row_max
 
 // softmax_tile for key tile `tile`: the lean instance unless the tile is
 // biased or ragged (warp-uniform branch).
+template <bool kExact = false>
 __device__ __forceinline__ void softmax_at(float (&s_acc)[32], float (&row_max)[2],
                                            float (&row_sum)[2], float (&corr)[2],
                                            const float* brow, int tile, int j, int t) {
   const int k0 = tile * kRingTile, kt = min(kRingTile, j - k0);
   if (brow != nullptr || kt < kRingTile)
-    softmax_tile<true>(s_acc, row_max, row_sum, corr, brow, k0, kt, t);
+    softmax_tile<true, kExact>(s_acc, row_max, row_sum, corr, brow, k0, kt, t);
   else
     softmax_tile<false>(s_acc, row_max, row_sum, corr, brow, k0, kt, t);
 }
@@ -1161,12 +870,12 @@ __global__ void __launch_bounds__(128 * (kWgs + 1), 1)
 // dS of one 64-key tile for this thread's two rows, in place of S:
 // P = exp(S + bias - lse), 0 past j (bias and mask only where kEdge);
 // dS = P (dP - D).
-template <bool kEdge>
-__device__ __forceinline__ void ds_tile(float (&s_acc)[32], const float (&dp_acc)[32],
+template <bool kEdge, int kR>  // kR = 32 (64 keys) or 8 (a 16-key tail)
+__device__ __forceinline__ void ds_tile(float (&s_acc)[kR], const float (&dp_acc)[kR],
                                         const float (&neg_lse)[2], const float (&d_r)[2],
                                         const float* brow, int k0, int kt, int t) {
 #pragma unroll
-  for (int c = 0; c < 8; ++c)
+  for (int c = 0; c < kR / 4; ++c)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int col = 8 * c + 2 * t + (e & 1), i = e >> 1;
@@ -1502,6 +1211,644 @@ __global__ void __launch_bounds__(128 * (kBwdWgs + 1), 1)
   }
 }
 
+// ---- bfloat16 multi-head attention for Hopper: TMA ring + wgmma -----------
+// (design note at the head of the file). The forward and pass 1 take the key
+// tiles of (sample, head) bh tail first: the tail, tile full = (j - 1) / 64
+// with keys 64 full .. j - 1, at ring position pos0, then the full tiles
+// 0 .. full - 1 at positions pos0 + 1 .. pos0 + full.
+__device__ __forceinline__ void produce_kv_tail_first(const Ring& ring, const CUtensorMap* k_map,
+                                                      const CUtensorMap* v_map, uint32_t k_s,
+                                                      uint32_t v_s, int bh, int full,
+                                                      int pos0 = 0) {
+  for (int l = 0; l <= full; ++l) {
+    const int pos = pos0 + l, s = pos % kStages, key0 = (l == 0 ? full : l - 1) * kRingTile;
+    mbar_wait(ring.empty(s), Ring::parity(pos) ^ 1);
+    mbar_expect_tx(ring.full(s), 2 * kTileBytes);
+    tma_load_3d(k_s + s * kTileBytes, k_map, ring.full(s), 0, key0, bh);
+    tma_load_3d(v_s + s * kTileBytes, v_map, ring.full(s), 0, key0, bh);
+  }
+}
+
+// Shared memory of the MHA forward: two buffers of kWgs query tiles, the
+// ring, then the barriers (two "Q landed", two "Q free", the ring's).
+constexpr int mha_fwd_smem(int wgs) {
+  return kSmemAlign + 2 * wgs * kTileBytes + 2 * kStages * kTileBytes + 8 * (4 + 2 * kStages);
+}
+
+// Forward. Grid (ceil(row_blocks / items), heads, batch), row_blocks =
+// ceil(n / (64 kWgs)): a block takes `items` consecutive blocks of 64 kWgs
+// query rows of one (sample, head) in turn (consumer warpgroup wg the wg-th
+// 64 rows of each), so one block's loads of the next item overlap the
+// products and stores of the current one: Q is double-buffered (a buffer is
+// freed once the item's last S is done) and the ring's positions run on
+// across items. Per item: the tail, kTail keys wide (16, or 64 where it
+// holds more than 16 keys), then the full tiles one behind on the tensor
+// cores as the multi-query forward, the tail's O = P V issued with S of the
+// first full tile.
+template <int kWgs, int kTail>
+__global__ void __launch_bounds__(128 * (kWgs + 1), kWgs == 1 ? 2 : 1)
+    mha_fwd_hopper_kernel(const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map,
+                          const float* __restrict__ bias, __nv_bfloat16* __restrict__ o,
+                          float* __restrict__ lse, int n, int j, int items) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t q_s = align_smem(smem_raw);
+  const uint32_t k_s = q_s + 2 * kWgs * kTileBytes, v_s = k_s + kStages * kTileBytes;
+  const uint32_t bars = v_s + kStages * kTileBytes;
+  const auto q_full = [&](int b) { return bars + 8 * b; };
+  const auto q_free = [&](int b) { return bars + 16 + 8 * b; };
+  const Ring ring{bars + 32, bars + 32 + 8 * kStages};
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(q_full(b), 1);
+      mbar_init(q_free(b), 4 * kWgs);
+    }
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(ring.full(s), 1);
+      mbar_init(ring.empty(s), 4 * kWgs);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int bh = sample_head(), row_blocks = (n + kWgs * kWgRows - 1) / (kWgs * kWgRows);
+  const int first = blockIdx.x * items, n_items = min(items, row_blocks - first);
+  const int full = (j - 1) / kRingTile;
+  const int warp = threadIdx.x >> 5;
+
+  if (warp < 4) {  // producer warpgroup: one thread issues every copy
+    producer_registers();
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < n_items; ++i) {
+        const int b = i & 1, row0 = (first + i) * kWgs * kWgRows;
+        mbar_wait(q_free(b), ((i >> 1) & 1) ^ 1);
+        mbar_expect_tx(q_full(b), kWgs * kTileBytes);
+        for (int h = 0; h < kWgs; ++h)
+          tma_load_3d(q_s + (b * kWgs + h) * kTileBytes, &q_map, q_full(b), 0,
+                      row0 + h * kWgRows, bh);
+        produce_kv_tail_first(ring, &k_map, &v_map, k_s, v_s, bh, full, i * (full + 1));
+      }
+    }
+    return;
+  }
+  consumer_registers<kWgs>();
+  const int wg = (warp >> 2) - 1, w = warp & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const float* brow = bias == nullptr ? nullptr : bias + static_cast<size_t>(blockIdx.z) * j;
+
+  for (int i = 0; i < n_items; ++i) {
+    const int b = i & 1, pos = i * (full + 1);  // ring position of this item's tail
+    const uint32_t my_q = q_s + (b * kWgs + wg) * kTileBytes;
+    float o_acc[32], s_acc[32];
+#pragma unroll
+    for (int r = 0; r < 32; ++r) o_acc[r] = 0.f;
+    float row_max[2] = {-INFINITY, -INFINITY};
+    float row_sum[2] = {0.f, 0.f};  // this thread's share of the two rows' sums
+    float corr[2];
+
+    // the tail: keys past j read as zeros and are masked to -inf
+    const int st = pos % kStages;
+    float s_tail[kTail / 2];
+    uint32_t pt[kTail / 16][4];
+    mbar_wait(q_full(b), (i >> 1) & 1);
+    mbar_wait(ring.full(st), Ring::parity(pos));
+    wgmma_fence();
+    gemm_abt(s_tail, my_q, k_s + st * kTileBytes);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s_tail);
+    softmax_tile<true, true>(s_tail, row_max, row_sum, corr, brow, full * kRingTile,
+                             j - full * kRingTile, t);
+    pack_a(pt, s_tail);
+    fence_regs(o_acc);
+    if (full == 0) {  // the tail alone: O = P V
+      warp_arrive(q_free(b));
+      wgmma_fence();
+      gemm_pb(o_acc, pt, v_s + st * kTileBytes);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o_acc);
+      release(ring, st);
+    } else {  // full tile f at ring position pos + 1 + f
+      // S of full tile 0 and the tail's O = P V together
+      const int s1 = (pos + 1) % kStages;
+      mbar_wait(ring.full(s1), Ring::parity(pos + 1));
+      wgmma_fence();
+      gemm_abt(s_acc, my_q, k_s + s1 * kTileBytes);
+      wgmma_commit();
+      wgmma_fence();
+      gemm_pb(o_acc, pt, v_s + st * kTileBytes);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(s_acc);
+      softmax_at<true>(s_acc, row_max, row_sum, corr, brow, 0, j, t);
+      wgmma_wait<0>();
+      fence_regs(o_acc);
+      release(ring, st);
+      for (int f = 0; f + 1 < full; ++f) {  // the last full tile peeled off
+        const int s = (pos + 1 + f) % kStages, sn = (pos + 2 + f) % kStages;
+        uint32_t pa[4][4];
+        pack_a(pa, s_acc);
+        rescale(o_acc, corr);
+        mbar_wait(ring.full(sn), Ring::parity(pos + 2 + f));
+        fence_regs(s_acc);
+        fence_regs(o_acc);
+        wgmma_fence();
+        gemm_abt(s_acc, my_q, k_s + sn * kTileBytes);
+        wgmma_commit();
+        wgmma_fence();
+        gemm_pb(o_acc, pa, v_s + s * kTileBytes);  // O += P V
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(s_acc);
+        softmax_at<true>(s_acc, row_max, row_sum, corr, brow, f + 1, j, t);
+        wgmma_wait<0>();
+        fence_regs(o_acc);
+        release(ring, s);
+      }
+      warp_arrive(q_free(b));  // every S of the item is done: Q's buffer is free
+      const int s = (pos + full) % kStages;
+      uint32_t pa[4][4];
+      pack_a(pa, s_acc);
+      rescale(o_acc, corr);
+      fence_regs(o_acc);
+      wgmma_fence();
+      gemm_pb(o_acc, pa, v_s + s * kTileBytes);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o_acc);
+      release(ring, s);
+    }
+
+    const int row0 = (first + i) * kWgs * kWgRows;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float total = row_sum[h];
+      total += __shfl_xor_sync(0xffffffffu, total, 1);
+      total += __shfl_xor_sync(0xffffffffu, total, 2);
+      const int row = row0 + wg * kWgRows + w * 16 + g + 8 * h;
+      if (row < n) {
+        const size_t r = static_cast<size_t>(bh) * n + row;
+        __nv_bfloat16* op = o + r * kHeadDim;
+#pragma unroll
+        for (int c = 0; c < 8; ++c)  // the late divide
+          *reinterpret_cast<uint32_t*>(op + 8 * c + 2 * t) =
+              pack_bf16(o_acc[4 * c + 2 * h] / total, o_acc[4 * c + 2 * h + 1] / total);
+        if (lse != nullptr && t == 0) lse[r] = row_max[h] + logf(total);
+      }
+    }
+  }
+}
+
+// ds_tile of a full 64-key tile with the bias, `bcol` its first key's entry
+// of the bias row: each thread's 16 bias values loaded once, nothing masked
+// (the multi-head pass 1's biased full tiles).
+__device__ __forceinline__ void ds_tile_biased(float (&s_acc)[32], const float (&dp_acc)[32],
+                                               const float (&neg_lse)[2], const float (&d_r)[2],
+                                               const float* bcol, int t) {
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const float b[2] = {__ldg(bcol + 8 * c + 2 * t), __ldg(bcol + 8 * c + 2 * t + 1)};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = fast_exp2(fmaf(s_acc[4 * c + e] + b[e & 1], kLog2e, neg_lse[e >> 1]));
+      s_acc[4 * c + e] = p * (dp_acc[4 * c + e] - d_r[e >> 1]);
+    }
+  }
+}
+
+// dS of full key tile `tile` in the multi-head pass 1 (warp-uniform branch).
+__device__ __forceinline__ void mha_ds_full(float (&s_acc)[32], const float (&dp_acc)[32],
+                                            const float (&neg_lse)[2], const float (&d_r)[2],
+                                            const float* brow, int tile, int t) {
+  if (brow != nullptr)
+    ds_tile_biased(s_acc, dp_acc, neg_lse, d_r, brow + tile * kRingTile, t);
+  else
+    ds_tile<false>(s_acc, dp_acc, neg_lse, d_r, brow, 0, kRingTile, t);
+}
+
+// Backward pass 1 (Q-major). Grid (ceil(n / (64 kWgs)), heads, batch), a
+// block's rows as in the forward: D = rowsum(dO * O) into `delta`, then the
+// tail (S and dP kTail keys wide, dq = dS K over kTail / 16 steps) and the
+// full tiles one behind on the tensor cores as the multi-query pass 1.
+template <int kWgs, int kTail>
+__global__ void __launch_bounds__(128 * (kWgs + 1), 1)
+    mha_bwd_dq_hopper_kernel(const __grid_constant__ CUtensorMap q_map,
+                             const __grid_constant__ CUtensorMap do_map,
+                             const __grid_constant__ CUtensorMap k_map,
+                             const __grid_constant__ CUtensorMap v_map,
+                             const float* __restrict__ bias, const __nv_bfloat16* __restrict__ o,
+                             const __nv_bfloat16* __restrict__ dout,
+                             const float* __restrict__ lse, __nv_bfloat16* __restrict__ dq,
+                             float* __restrict__ delta, int n, int j) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t q_s = align_smem(smem_raw);
+  const uint32_t do_s = q_s + kWgs * kTileBytes;
+  const uint32_t k_s = do_s + kWgs * kTileBytes, v_s = k_s + kStages * kTileBytes;
+  const uint32_t rows_full = v_s + kStages * kTileBytes;
+  const Ring ring = init_barriers<kWgs>(rows_full);
+  const int bh = sample_head(), row0 = blockIdx.x * kWgs * kWgRows;
+  const int full = (j - 1) / kRingTile;
+  const int warp = threadIdx.x >> 5;
+
+  if (warp < 4) {
+    producer_registers();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(rows_full, 2 * kWgs * kTileBytes);
+      for (int h = 0; h < kWgs; ++h) {
+        tma_load_3d(q_s + h * kTileBytes, &q_map, rows_full, 0, row0 + h * kWgRows, bh);
+        tma_load_3d(do_s + h * kTileBytes, &do_map, rows_full, 0, row0 + h * kWgRows, bh);
+      }
+      produce_kv_tail_first(ring, &k_map, &v_map, k_s, v_s, bh, full);
+    }
+    return;
+  }
+  consumer_registers<kWgs>();
+  const int wg = (warp >> 2) - 1, w = warp & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const uint32_t my_q = q_s + wg * kTileBytes, my_do = do_s + wg * kTileBytes;
+  const float* brow = bias == nullptr ? nullptr : bias + static_cast<size_t>(blockIdx.z) * j;
+
+  // D and the log-sum-exp of this thread's two rows: each of a quad's 4
+  // threads sums 16 of the 64 columns
+  float d_r[2], neg_lse[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + wg * kWgRows + w * 16 + g + 8 * i;
+    const bool valid = row < n;
+    const size_t r = static_cast<size_t>(bh) * n + (valid ? row : 0);
+    float acc = 0.f;
+    if (valid) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint4 ov = *reinterpret_cast<const uint4*>(o + r * kHeadDim + t * 16 + h * 8);
+        const uint4 dv = *reinterpret_cast<const uint4*>(dout + r * kHeadDim + t * 16 + h * 8);
+        const __nv_bfloat16* oe = reinterpret_cast<const __nv_bfloat16*>(&ov);
+        const __nv_bfloat16* de = reinterpret_cast<const __nv_bfloat16*>(&dv);
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          acc = fmaf(__bfloat162float(de[e]), __bfloat162float(oe[e]), acc);
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    d_r[i] = acc;
+    neg_lse[i] = valid ? -lse[r] * kLog2e : -INFINITY;  // rows past n: P = 0
+    if (valid && t == 0) delta[r] = acc;
+  }
+
+  float dq_acc[32], s_acc[32], dp_acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dq_acc[i] = 0.f;
+  mbar_wait(rows_full, 0);
+  mbar_wait(ring.full(0), 0);
+  {  // the tail
+    float s_tail[kTail / 2], dp_tail[kTail / 2];
+    uint32_t pa[kTail / 16][4];
+    wgmma_fence();
+    gemm_abt(s_tail, my_q, k_s);
+    gemm_abt(dp_tail, my_do, v_s);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s_tail);
+    fence_regs(dp_tail);
+    ds_tile<true>(s_tail, dp_tail, neg_lse, d_r, brow, full * kRingTile, j - full * kRingTile, t);
+    pack_a(pa, s_tail);
+    fence_regs(dq_acc);
+    wgmma_fence();
+    gemm_pb(dq_acc, pa, k_s);  // dq = dS K (dq is zero)
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq_acc);
+    release(ring, 0);
+  }
+  if (full > 0) {  // full tile i at ring position i + 1
+    const int s1 = 1 % kStages;
+    mbar_wait(ring.full(s1), Ring::parity(1));
+    wgmma_fence();
+    gemm_abt(s_acc, my_q, k_s + s1 * kTileBytes);
+    gemm_abt(dp_acc, my_do, v_s + s1 * kTileBytes);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s_acc);
+    fence_regs(dp_acc);
+    mha_ds_full(s_acc, dp_acc, neg_lse, d_r, brow, 0, t);
+    for (int it = 0; it + 1 < full; ++it) {  // the last full tile peeled off
+      const int s = (it + 1) % kStages, sn = (it + 2) % kStages;
+      uint32_t pa[4][4];
+      pack_a(pa, s_acc);
+      mbar_wait(ring.full(sn), Ring::parity(it + 2));
+      fence_regs(s_acc);
+      fence_regs(dp_acc);
+      fence_regs(dq_acc);
+      wgmma_fence();
+      gemm_abt(s_acc, my_q, k_s + sn * kTileBytes);
+      gemm_abt(dp_acc, my_do, v_s + sn * kTileBytes);
+      wgmma_commit();
+      wgmma_fence();
+      gemm_pb(dq_acc, pa, k_s + s * kTileBytes);  // dq += dS K
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(s_acc);
+      fence_regs(dp_acc);
+      mha_ds_full(s_acc, dp_acc, neg_lse, d_r, brow, it + 1, t);
+      wgmma_wait<0>();
+      fence_regs(dq_acc);
+      release(ring, s);
+    }
+    const int s = full % kStages;
+    uint32_t pa[4][4];
+    pack_a(pa, s_acc);
+    fence_regs(dq_acc);
+    wgmma_fence();
+    gemm_pb(dq_acc, pa, k_s + s * kTileBytes);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq_acc);
+    release(ring, s);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + wg * kWgRows + w * 16 + g + 8 * i;
+    if (row < n) {
+      __nv_bfloat16* dst = dq + (static_cast<size_t>(bh) * n + row) * kHeadDim;
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        *reinterpret_cast<uint32_t*>(dst + 8 * c + 2 * t) =
+            pack_bf16(dq_acc[4 * c + 2 * i], dq_acc[4 * c + 2 * i + 1]);
+    }
+  }
+}
+
+constexpr int kStagedBytes = 16 * 128;  // a K-major (16, 64) bf16 tile: one 128 B row a key
+
+// The (64 rows, 16 keys) accumulator `x` rounded to bf16 into a K-major
+// (16 keys, 64 rows) tile at generic address `tile` (1024-aligned), in TMA's
+// 128-byte swizzle (16-byte chunk c of line r at chunk c ^ (r % 8)): the B
+// operand of gemm_atb.
+__device__ __forceinline__ void stage_kmajor(uint8_t* tile, const float (&x)[8], int w, int g,
+                                             int t) {
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = 8 * c + 2 * t + (e & 1), row = 16 * w + g + 8 * (e >> 1);
+      const int off = key * 128 + (((row >> 3) ^ (key & 7)) << 4) + (row & 7) * 2;
+      *reinterpret_cast<__nv_bfloat16*>(tile + off) = __float2bfloat16_rn(x[4 * c + e]);
+    }
+}
+
+// Shared-memory tiles of a narrow key tail in pass 2: its K and V (TMA), and
+// its P and dS of the current row tile (staged; shared addresses and generic
+// pointers).
+struct TailTiles {
+  uint32_t k, v, p, ds;
+  uint8_t *p_gen, *ds_gen;
+};
+
+// The narrow tail's share of one row tile of pass 2 (at most 16 keys, taken
+// by the warpgroup that owns the last full key tile): S = Q K^T and
+// dP = dO V^T as m64n16 products (rows x keys), P = exp(S + bias - lse) and
+// dS = P (dP - D), 0 past j and past n, staged as K-major bf16 tiles, then
+// dv^T += dO^T P and dk^T += Q^T dS (dims x keys) with dO and Q read M-major.
+// Every product is waited for here.
+__device__ __forceinline__ void tail_kv_step(float (&dkt)[8], float (&dvt)[8], uint32_t q_tile,
+                                             uint32_t do_tile, const TailTiles& tail,
+                                             const float* ls, const float* ds,
+                                             const float* tail_bias, int kt, int valid_rows,
+                                             int w, int g, int t) {
+  float st[8], dpt[8];
+  wgmma_fence();
+  gemm_abt(st, q_tile, tail.k);
+  gemm_abt(dpt, do_tile, tail.v);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(st);
+  fence_regs(dpt);
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = 8 * c + 2 * t + (e & 1), row = 16 * w + g + 8 * (e >> 1);
+      const bool valid = key < kt && row < valid_rows;
+      const float b = (tail_bias != nullptr && key < kt) ? __ldg(tail_bias + key) : 0.f;
+      const float p = valid ? fast_exp2((st[4 * c + e] + b - ls[row]) * kLog2e) : 0.f;
+      dpt[4 * c + e] = valid ? p * (dpt[4 * c + e] - ds[row]) : 0.f;
+      st[4 * c + e] = p;
+    }
+  stage_kmajor(tail.p_gen, st, w, g, t);
+  stage_kmajor(tail.ds_gen, dpt, w, g, t);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");                 // this warpgroup's stores
+  fence_regs(dkt);
+  fence_regs(dvt);
+  wgmma_fence();
+  gemm_atb(dvt, do_tile, tail.p);
+  gemm_atb(dkt, q_tile, tail.ds);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(dkt);
+  fence_regs(dvt);
+}
+
+// Backward pass 2 (K-major). Grid (key_blocks * splits, heads, batch): a
+// block owns kWgs key tiles of one (sample, head) (64 keys a consumer
+// warpgroup, K and V loaded once) and walks row tiles [split * T / splits,
+// (split + 1) * T / splits) of the head's T = ceil(n / 64): S^T = K Q^T,
+// dP^T = V dO^T, dv += P^T dO, dk += dS^T Q, one tile behind on the tensor
+// cores as the multi-query pass 2. Where kTail, the key tiles are the full
+// ones and the last block's last warpgroup also takes the narrow tail
+// (tail_kv_step). One split writes dk/dv in bf16; more write float32 slices
+// (sample-head, split) that kv_reduce_kernel sums in split order.
+template <int kWgs, bool kTail>
+__global__ void __launch_bounds__(128 * (kWgs + 1), 1)
+    mha_bwd_dkdv_hopper_kernel(const __grid_constant__ CUtensorMap q_map,
+                               const __grid_constant__ CUtensorMap do_map,
+                               const __grid_constant__ CUtensorMap k_map,
+                               const __grid_constant__ CUtensorMap v_map,
+                               const __grid_constant__ CUtensorMap lse_map,
+                               const __grid_constant__ CUtensorMap delta_map,
+                               const float* __restrict__ bias, __nv_bfloat16* __restrict__ dk,
+                               __nv_bfloat16* __restrict__ dv, float* __restrict__ dk_acc,
+                               float* __restrict__ dv_acc, int n, int j, int splits) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t k_s = align_smem(smem_raw);
+  const uint32_t v_s = k_s + kWgs * kTileBytes;
+  const uint32_t q_s = v_s + kWgs * kTileBytes, do_s = q_s + kStages * kTileBytes;
+  const uint32_t tail_s = do_s + kStages * kTileBytes;  // tail K, V, then staged P, dS
+  const uint32_t lse_s = tail_s + (kTail ? 2 * kTileBytes + 2 * kStagedBytes : 0);
+  const uint32_t delta_s = lse_s + kStages * kRingTile * 4;
+  const uint32_t kv_full = delta_s + kStages * kRingTile * 4;
+  const Ring ring = init_barriers<kWgs>(kv_full);
+  const int bh = sample_head();
+  const int key_block = blockIdx.x / splits, split = blockIdx.x % splits;
+  const int key0 = key_block * kWgs * kWgRows;
+  const int full = (j - 1) / kRingTile;
+  const bool tail_block = kTail && key_block == static_cast<int>(gridDim.x) / splits - 1;
+  const int row_tiles = (n + kRingTile - 1) / kRingTile;
+  const int t_begin = split * row_tiles / splits, t_end = (split + 1) * row_tiles / splits;
+  const int tiles = t_end - t_begin;
+  const int warp = threadIdx.x >> 5;
+
+  if (warp < 4) {
+    producer_registers();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(kv_full, (2 * kWgs + (tail_block ? 2 : 0)) * kTileBytes);
+      for (int h = 0; h < kWgs; ++h) {
+        tma_load_3d(k_s + h * kTileBytes, &k_map, kv_full, 0, key0 + h * kWgRows, bh);
+        tma_load_3d(v_s + h * kTileBytes, &v_map, kv_full, 0, key0 + h * kWgRows, bh);
+      }
+      if (tail_block) {
+        tma_load_3d(tail_s, &k_map, kv_full, 0, full * kRingTile, bh);
+        tma_load_3d(tail_s + kTileBytes, &v_map, kv_full, 0, full * kRingTile, bh);
+      }
+      for (int it = 0; it < tiles; ++it) {
+        const int s = it % kStages, r0 = (t_begin + it) * kRingTile;
+        const int flat = bh * n + r0;  // lse / delta: flat (batch * heads * n) rows
+        mbar_wait(ring.empty(s), Ring::parity(it) ^ 1);
+        mbar_expect_tx(ring.full(s), 2 * kTileBytes + 2 * kRingTile * 4);
+        tma_load_3d(q_s + s * kTileBytes, &q_map, ring.full(s), 0, r0, bh);
+        tma_load_3d(do_s + s * kTileBytes, &do_map, ring.full(s), 0, r0, bh);
+        tma_load_flat(lse_s + s * kRingTile * 4, &lse_map, ring.full(s), flat);
+        tma_load_flat(delta_s + s * kRingTile * 4, &delta_map, ring.full(s), flat);
+      }
+    }
+    return;
+  }
+  consumer_registers<kWgs>();
+  const int wg = (warp >> 2) - 1, w = warp & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const uint32_t my_k = k_s + wg * kTileBytes, my_v = v_s + wg * kTileBytes;
+  const auto generic = [&](uint32_t addr) { return smem_raw + (addr - smem_addr(smem_raw)); };
+  const float* lse_p = reinterpret_cast<const float*>(generic(lse_s));
+  const float* delta_p = reinterpret_cast<const float*>(generic(delta_s));
+  const float* brow = bias == nullptr ? nullptr : bias + static_cast<size_t>(blockIdx.z) * j;
+  const bool tail_owner = tail_block && wg == kWgs - 1;
+  const TailTiles tail{tail_s, tail_s + kTileBytes, tail_s + 2 * kTileBytes,
+                       tail_s + 2 * kTileBytes + kStagedBytes, generic(tail_s + 2 * kTileBytes),
+                       generic(tail_s + 2 * kTileBytes + kStagedBytes)};
+  const float* tail_bias = brow == nullptr ? nullptr : brow + full * kRingTile;
+  const int tail_kt = j - full * kRingTile;
+  float b_key[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = key0 + wg * kWgRows + w * 16 + g + 8 * i;
+    b_key[i] = (brow != nullptr && key < j) ? brow[key] : 0.f;
+  }
+
+  float dk_r[32], dv_r[32], st[32], dpt[32], dkt[8], dvt[8];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk_r[i] = dv_r[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) dkt[i] = dvt[i] = 0.f;
+  mbar_wait(kv_full, 0);
+  mbar_wait(ring.full(0), 0);  // tiles >= 1: row_splits keeps splits <= row tiles
+  wgmma_fence();
+  gemm_abt(st, my_k, q_s);    // S^T: rows are keys, columns query rows
+  gemm_abt(dpt, my_v, do_s);  // dP^T
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(st);
+  fence_regs(dpt);
+  dst_at(st, dpt, lse_p, delta_p, b_key, n - t_begin * kRingTile, t);
+  for (int it = 0; it + 1 < tiles; ++it) {  // the last tile peeled off
+    const int s = it % kStages, sn = (it + 1) % kStages;
+    uint32_t pa[4][4], da[4][4];
+    pack_a(pa, st);
+    pack_a(da, dpt);
+    mbar_wait(ring.full(sn), Ring::parity(it + 1));
+    fence_regs(st);
+    fence_regs(dpt);
+    fence_regs(dv_r);
+    fence_regs(dk_r);
+    wgmma_fence();
+    gemm_abt(st, my_k, q_s + sn * kTileBytes);
+    gemm_abt(dpt, my_v, do_s + sn * kTileBytes);
+    wgmma_commit();
+    wgmma_fence();
+    gemm_pb(dv_r, pa, do_s + s * kTileBytes);  // dv += P^T dO
+    gemm_pb(dk_r, da, q_s + s * kTileBytes);   // dk += dS^T Q
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(st);
+    fence_regs(dpt);
+    dst_at(st, dpt, lse_p + sn * kRingTile, delta_p + sn * kRingTile, b_key,
+           n - (t_begin + it + 1) * kRingTile, t);
+    wgmma_wait<0>();
+    fence_regs(dv_r);
+    fence_regs(dk_r);
+    if (tail_owner)
+      tail_kv_step(dkt, dvt, q_s + s * kTileBytes, do_s + s * kTileBytes, tail,
+                   lse_p + s * kRingTile, delta_p + s * kRingTile, tail_bias, tail_kt,
+                   n - (t_begin + it) * kRingTile, w, g, t);
+    release(ring, s);
+  }
+  {
+    const int s = (tiles - 1) % kStages;
+    uint32_t pa[4][4], da[4][4];
+    pack_a(pa, st);
+    pack_a(da, dpt);
+    fence_regs(dv_r);
+    fence_regs(dk_r);
+    wgmma_fence();
+    gemm_pb(dv_r, pa, do_s + s * kTileBytes);
+    gemm_pb(dk_r, da, q_s + s * kTileBytes);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv_r);
+    fence_regs(dk_r);
+    if (tail_owner)
+      tail_kv_step(dkt, dvt, q_s + s * kTileBytes, do_s + s * kTileBytes, tail,
+                   lse_p + s * kRingTile, delta_p + s * kRingTile, tail_bias, tail_kt,
+                   n - (t_begin + tiles - 1) * kRingTile, w, g, t);
+    release(ring, s);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = key0 + wg * kWgRows + w * 16 + g + 8 * i;
+    if (key >= j) continue;
+    if (splits == 1) {
+      const size_t out = (static_cast<size_t>(bh) * j + key) * kHeadDim;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        *reinterpret_cast<uint32_t*>(dk + out + 8 * c + 2 * t) =
+            pack_bf16(dk_r[4 * c + 2 * i], dk_r[4 * c + 2 * i + 1]);
+        *reinterpret_cast<uint32_t*>(dv + out + 8 * c + 2 * t) =
+            pack_bf16(dv_r[4 * c + 2 * i], dv_r[4 * c + 2 * i + 1]);
+      }
+    } else {
+      const size_t out = ((static_cast<size_t>(bh) * splits + split) * j + key) * kHeadDim;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        *reinterpret_cast<float2*>(dk_acc + out + 8 * c + 2 * t) =
+            make_float2(dk_r[4 * c + 2 * i], dk_r[4 * c + 2 * i + 1]);
+        *reinterpret_cast<float2*>(dv_acc + out + 8 * c + 2 * t) =
+            make_float2(dv_r[4 * c + 2 * i], dv_r[4 * c + 2 * i + 1]);
+      }
+    }
+  }
+  if (tail_owner) {  // dk^T, dv^T of the tail: rows are the 64 dims, columns its keys
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = full * kRingTile + 8 * c + 2 * t + (e & 1);
+        const int dim = 16 * w + g + 8 * (e >> 1);
+        if (key >= j) continue;
+        if (splits == 1) {
+          const size_t out = (static_cast<size_t>(bh) * j + key) * kHeadDim + dim;
+          dk[out] = __float2bfloat16_rn(dkt[4 * c + e]);
+          dv[out] = __float2bfloat16_rn(dvt[4 * c + e]);
+        } else {
+          const size_t out =
+              ((static_cast<size_t>(bh) * splits + split) * j + key) * kHeadDim + dim;
+          dk_acc[out] = dkt[4 * c + e];
+          dv_acc[out] = dvt[4 * c + e];
+        }
+      }
+  }
+}
+
 // ---- host side: tensor maps and launches of the Hopper kernels -------------
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -1692,6 +2039,172 @@ int launch_mqa_backward_hopper(const void* q, const void* k, const void* v, cons
                         dv_acc, batch, rows, j, stream);
 }
 
+// ---- launches of the multi-head kernels ----
+// The tail of j keys (tile (j - 1) / 64) is narrow where it holds at most 16.
+bool narrow_tail(int j) { return j - (j - 1) / kRingTile * kRingTile <= 16; }
+
+// A launch fills the card where its blocks reach 15/16 of the SMs.
+long long blocks_to_fill() { return sm_count() * 15LL / 16; }
+
+// Consumer warpgroups of an MHA forward or pass 1 over `tiles` 64-row tiles
+// of each of `bh` (sample, head)s: the most of max_wgs, ..., 2 that divides
+// `tiles` (no warpgroup idle by design) and still fills the card, else 1.
+int mha_wgs(int tiles, long long bh, int max_wgs) {
+  for (int w = max_wgs; w > 1; w /= 2)
+    if (tiles % w == 0 && tiles / w * bh >= blocks_to_fill()) return w;
+  return 1;
+}
+
+// Row blocks of one head a forward block takes in turn: the most (a power of
+// two) that still fills the card.
+int mha_items(int row_blocks, long long bh) {
+  int items = 1;
+  while (items < row_blocks &&
+         (row_blocks + 2 * items - 1) / (2 * items) * bh >= blocks_to_fill())
+    items *= 2;
+  return items;
+}
+
+// Pass 2's key tiles: the full ones where a narrow tail rides along (and
+// there is a full tile to carry it), else every tile, the last ragged; two
+// a block where their count is even, else one.
+struct KeyBlocking {
+  bool tail;
+  int wgs, blocks;
+};
+KeyBlocking mha_key_blocking(int j) {
+  const int full = (j - 1) / kRingTile;
+  const bool tail = full > 0 && narrow_tail(j);
+  const int tiles = tail ? full : full + 1;
+  const int wgs = tiles % 2 == 0 ? 2 : 1;
+  return {tail, wgs, tiles / wgs};
+}
+
+int mha_row_splits(int batch, int heads, int n, int j) {
+  return row_splits(mha_key_blocking(j).blocks * batch * heads, (n + kRingTile - 1) / kRingTile);
+}
+
+template <int kWgs, int kTail>
+int launch_mha_fwd(const CUtensorMap& q_map, const CUtensorMap& k_map, const CUtensorMap& v_map,
+                   const float* bias, void* o, float* lse, int batch, int heads, int n, int j,
+                   cudaStream_t stream) {
+  static unsigned smem_set = 0;
+  const cudaError_t err =
+      allow_smem(mha_fwd_hopper_kernel<kWgs, kTail>, mha_fwd_smem(kWgs), smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int row_blocks = (n + kWgs * kWgRows - 1) / (kWgs * kWgRows);
+  const int items = mha_items(row_blocks, static_cast<long long>(batch) * heads);
+  const dim3 grid((row_blocks + items - 1) / items, heads, batch);
+  mha_fwd_hopper_kernel<kWgs, kTail><<<grid, 128 * (kWgs + 1), mha_fwd_smem(kWgs), stream>>>(
+      q_map, k_map, v_map, bias, static_cast<__nv_bfloat16*>(o), lse, n, j, items);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kTail>
+int launch_mha_fwd_wgs(int wgs, const CUtensorMap& q_map, const CUtensorMap& k_map,
+                       const CUtensorMap& v_map, const float* bias, void* o, float* lse,
+                       int batch, int heads, int n, int j, cudaStream_t stream) {
+  if (wgs == 4)
+    return launch_mha_fwd<4, kTail>(q_map, k_map, v_map, bias, o, lse, batch, heads, n, j, stream);
+  if (wgs == 2)
+    return launch_mha_fwd<2, kTail>(q_map, k_map, v_map, bias, o, lse, batch, heads, n, j, stream);
+  return launch_mha_fwd<1, kTail>(q_map, k_map, v_map, bias, o, lse, batch, heads, n, j, stream);
+}
+
+int launch_mha_forward_hopper(const void* q, const void* k, const void* v, const float* bias,
+                              void* o, float* lse, int batch, int heads, int n, int j,
+                              cudaStream_t stream) {
+  const int bh = batch * heads;
+  const cudaError_t dev_err = use_device_of(q);
+  if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
+  CUtensorMap q_map, k_map, v_map;
+  if (!encode_rows(&q_map, q, n, bh) || !encode_rows(&k_map, k, j, bh) ||
+      !encode_rows(&v_map, v, j, bh))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int wgs = mha_wgs((n + kWgRows - 1) / kWgRows, bh, 4);
+  return narrow_tail(j)
+             ? launch_mha_fwd_wgs<16>(wgs, q_map, k_map, v_map, bias, o, lse, batch, heads, n, j,
+                                      stream)
+             : launch_mha_fwd_wgs<64>(wgs, q_map, k_map, v_map, bias, o, lse, batch, heads, n, j,
+                                      stream);
+}
+
+template <int kWgs, int kTail>
+int launch_mha_dq(const CUtensorMap& q_map, const CUtensorMap& do_map, const CUtensorMap& k_map,
+                  const CUtensorMap& v_map, const float* bias, const void* o, const void* dout,
+                  const float* lse, void* dq, float* delta, int batch, int heads, int n, int j,
+                  cudaStream_t stream) {
+  static unsigned smem_set = 0;
+  const cudaError_t err =
+      allow_smem(mha_bwd_dq_hopper_kernel<kWgs, kTail>, dq_smem(kWgs), smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((n + kWgs * kWgRows - 1) / (kWgs * kWgRows), heads, batch);
+  mha_bwd_dq_hopper_kernel<kWgs, kTail><<<grid, 128 * (kWgs + 1), dq_smem(kWgs), stream>>>(
+      q_map, do_map, k_map, v_map, bias, static_cast<const __nv_bfloat16*>(o),
+      static_cast<const __nv_bfloat16*>(dout), lse, static_cast<__nv_bfloat16*>(dq), delta, n, j);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kWgs, bool kTail>
+int launch_mha_dkdv(const CUtensorMap& q_map, const CUtensorMap& do_map, const CUtensorMap& k_map,
+                    const CUtensorMap& v_map, const CUtensorMap& lse_map,
+                    const CUtensorMap& delta_map, const float* bias, void* dk, void* dv,
+                    float* dk_acc, float* dv_acc, int key_blocks, int splits, int batch,
+                    int heads, int n, int j, cudaStream_t stream) {
+  constexpr int smem = dkdv_smem(kWgs) + (kTail ? 2 * kTileBytes + 2 * kStagedBytes : 0);
+  static unsigned smem_set = 0;
+  const cudaError_t err = allow_smem(mha_bwd_dkdv_hopper_kernel<kWgs, kTail>, smem, smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  mha_bwd_dkdv_hopper_kernel<kWgs, kTail>
+      <<<dim3(key_blocks * splits, heads, batch), 128 * (kWgs + 1), smem, stream>>>(
+          q_map, do_map, k_map, v_map, lse_map, delta_map, bias, static_cast<__nv_bfloat16*>(dk),
+          static_cast<__nv_bfloat16*>(dv), dk_acc, dv_acc, n, j, splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// scratch: float32, delta (batch * heads * n, rounded up to 4), then, only
+// where pass 2 splits the rows, two regions of splits * batch * heads * j *
+// 64 (dk, dv partial slices); mmt_mha_backward_row_splits gives the count
+int launch_mha_backward_hopper(const void* q, const void* k, const void* v, const float* bias,
+                               const void* o, const void* dout, const float* lse, void* dq,
+                               void* dk, void* dv, float* scratch, int batch, int heads, int n,
+                               int j, cudaStream_t stream) {
+  const int bh = batch * heads;
+  const size_t flat = static_cast<size_t>(bh) * n;
+  const KeyBlocking kb = mha_key_blocking(j);
+  const int splits = mha_row_splits(batch, heads, n, j);
+  float* delta = scratch;
+  float* dk_acc = scratch + (flat + 3) / 4 * 4;
+  float* dv_acc = dk_acc + static_cast<size_t>(splits) * bh * j * kHeadDim;
+  const cudaError_t dev_err = use_device_of(q);
+  if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
+  CUtensorMap q_map, do_map, k_map, v_map, lse_map, delta_map;
+  if (!encode_rows(&q_map, q, n, bh) || !encode_rows(&do_map, dout, n, bh) ||
+      !encode_rows(&k_map, k, j, bh) || !encode_rows(&v_map, v, j, bh) ||
+      !encode_flat(&lse_map, lse, flat) || !encode_flat(&delta_map, delta, flat))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool wide_dq = mha_wgs((n + kWgRows - 1) / kWgRows, bh, 2) == 2;
+  int err;
+  if (narrow_tail(j))
+    err = wide_dq ? launch_mha_dq<2, 16>(q_map, do_map, k_map, v_map, bias, o, dout, lse, dq, delta,
+                                         batch, heads, n, j, stream)
+                  : launch_mha_dq<1, 16>(q_map, do_map, k_map, v_map, bias, o, dout, lse, dq, delta,
+                                         batch, heads, n, j, stream);
+  else
+    err = wide_dq ? launch_mha_dq<2, 64>(q_map, do_map, k_map, v_map, bias, o, dout, lse, dq, delta,
+                                         batch, heads, n, j, stream)
+                  : launch_mha_dq<1, 64>(q_map, do_map, k_map, v_map, bias, o, dout, lse, dq, delta,
+                                         batch, heads, n, j, stream);
+  if (err != 0) return err;
+  const auto dkdv = kb.wgs == 2 ? (kb.tail ? launch_mha_dkdv<2, true> : launch_mha_dkdv<2, false>)
+                                : (kb.tail ? launch_mha_dkdv<1, true> : launch_mha_dkdv<1, false>);
+  err = dkdv(q_map, do_map, k_map, v_map, lse_map, delta_map, bias, dk, dv, dk_acc, dv_acc,
+             kb.blocks, splits, batch, heads, n, j, stream);
+  if (err != 0 || splits == 1) return err;
+  launch_reduce<__nv_bfloat16>(dk_acc, dv_acc, dk, dv, splits, bh, j, stream);
+  return static_cast<int>(cudaGetLastError());
+}
+
 bool bad_sizes(int batch, int heads, int n, int j, int head_dim) {
   return head_dim != kHeadDim || batch <= 0 || heads <= 0 || n <= 0 || j <= 0 ||
          batch > kMaxGridYZ || heads > kMaxGridYZ;
@@ -1710,19 +2223,16 @@ int launch_forward(const void* q, const void* k, const void* v, const float* bia
   } else if (dtype == mmt::kBFloat16 && shared_kv) {
     return launch_mqa_forward_hopper(q, k, v, bias, o, lse, batch, heads, n, j, stream);
   } else if (dtype == mmt::kBFloat16) {
-    const dim3 grid((n + kTcRows - 1) / kTcRows, heads, batch);
-    attention_fwd_bf16_kernel<<<grid, kTcThreads, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), bias, static_cast<__nv_bfloat16*>(o), lse,
-        kv_group, heads, n, j);
+    return launch_mha_forward_hopper(q, k, v, bias, o, lse, batch, heads, n, j, stream);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// scratch: float32, batch*heads*n (D) + 2 * batch*heads*j*head_dim (dk/dv slices);
-// the bf16 multi-query route lays it out as launch_mqa_backward_hopper says
+// scratch: float32, batch*heads*n (D) + 2 * batch*heads*j*head_dim (dk/dv
+// slices); the bf16 routes lay it out as launch_mqa_backward_hopper and
+// launch_mha_backward_hopper say
 int launch_backward(const void* q, const void* k, const void* v, const float* bias,
                     const void* o, const void* dout, const float* lse, void* dq, void* dk,
                     void* dv, float* scratch, int batch, int heads, int n, int j, int head_dim,
@@ -1732,38 +2242,25 @@ int launch_backward(const void* q, const void* k, const void* v, const float* bi
   if (dtype == mmt::kBFloat16 && shared_kv)
     return launch_mqa_backward_hopper(q, k, v, bias, o, dout, lse, dq, dk, dv, scratch, batch,
                                       heads, n, j, stream);
+  if (dtype == mmt::kBFloat16)
+    return launch_mha_backward_hopper(q, k, v, bias, o, dout, lse, dq, dk, dv, scratch, batch,
+                                      heads, n, j, stream);
+  if (dtype != mmt::kFloat32) return static_cast<int>(cudaErrorInvalidValue);
   const int kv_group = shared_kv ? heads : 1;
   const int bh = batch * heads;
   float* delta = scratch;
   float* dk_acc = scratch + static_cast<size_t>(bh) * n;
   float* dv_acc = dk_acc + static_cast<size_t>(bh) * j * kHeadDim;
-  if (dtype == mmt::kFloat32) {
-    const float* qf = static_cast<const float*>(q);
-    const float* kf = static_cast<const float*>(k);
-    const float* vf = static_cast<const float*>(v);
-    const float* dof = static_cast<const float*>(dout);
-    attention_bwd_dq_kernel<<<dim3((n + kDqRows - 1) / kDqRows, heads, batch), kDqRows, 0, stream>>>(
-        qf, kf, vf, bias, static_cast<const float*>(o), dof, lse, static_cast<float*>(dq), delta,
-        kv_group, heads, n, j);
-    attention_bwd_dkdv_kernel<<<dim3((j + kKvKeys - 1) / kKvKeys, heads, batch), kKvKeys, 0, stream>>>(
-        qf, kf, vf, bias, dof, lse, delta, dk_acc, dv_acc, kv_group, heads, n, j);
-    launch_reduce<float>(dk_acc, dv_acc, dk, dv, kv_group, bh / kv_group, j, stream);
-  } else if (dtype == mmt::kBFloat16) {
-    const __nv_bfloat16* qb = static_cast<const __nv_bfloat16*>(q);
-    const __nv_bfloat16* kb = static_cast<const __nv_bfloat16*>(k);
-    const __nv_bfloat16* vb = static_cast<const __nv_bfloat16*>(v);
-    const __nv_bfloat16* dob = static_cast<const __nv_bfloat16*>(dout);
-    attention_bwd_dq_bf16_kernel<<<dim3((n + kTcRows - 1) / kTcRows, heads, batch), kTcThreads, 0,
-                                   stream>>>(
-        qb, kb, vb, bias, static_cast<const __nv_bfloat16*>(o), dob, lse,
-        static_cast<__nv_bfloat16*>(dq), delta, kv_group, heads, n, j);
-    attention_bwd_dkdv_bf16_kernel<<<dim3((j + kTcKeys - 1) / kTcKeys, heads, batch), kTcThreads, 0,
-                                     stream>>>(qb, kb, vb, bias, dob, lse, delta, dk_acc, dv_acc,
-                                               kv_group, heads, n, j);
-    launch_reduce<__nv_bfloat16>(dk_acc, dv_acc, dk, dv, kv_group, bh / kv_group, j, stream);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  const float* dof = static_cast<const float*>(dout);
+  attention_bwd_dq_kernel<<<dim3((n + kDqRows - 1) / kDqRows, heads, batch), kDqRows, 0, stream>>>(
+      qf, kf, vf, bias, static_cast<const float*>(o), dof, lse, static_cast<float*>(dq), delta,
+      kv_group, heads, n, j);
+  attention_bwd_dkdv_kernel<<<dim3((j + kKvKeys - 1) / kKvKeys, heads, batch), kKvKeys, 0, stream>>>(
+      qf, kf, vf, bias, dof, lse, delta, dk_acc, dv_acc, kv_group, heads, n, j);
+  launch_reduce<float>(dk_acc, dv_acc, dk, dv, kv_group, bh / kv_group, j, stream);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1797,6 +2294,12 @@ extern "C" int mmt_mha_backward(const void* q, const void* k, const void* v, con
                                 int j, int head_dim, int dtype, void* stream) {
   return launch_backward(q, k, v, bias, o, dout, lse, dq, dk, dv, scratch, batch, heads, n, j,
                          head_dim, dtype, false, static_cast<cudaStream_t>(stream));
+}
+
+// Row splits the bf16 multi-head backward takes on the current device (its
+// scratch holds float32 dk/dv slices only where this is above 1).
+extern "C" int mmt_mha_backward_row_splits(int batch, int heads, int n, int j) {
+  return mha_row_splits(batch, heads, n, j);
 }
 
 extern "C" const char* mmt_error_string(int code) {

@@ -150,15 +150,29 @@ MAX_ROW_SPLITS = 4  # csrc/flash_attention.cu kMaxRowSplits: float32 dk/dv slice
 
 
 def backward_scratch_floats(kind: str, dtype: torch.dtype, b: int, h: int, n: int, j: int,
-                            d: int = 64) -> int:
+                            d: int = 64, splits: int = 1) -> int:
     """Float32 scratch of the backward kernel: the rows' D = rowsum(dO * O),
-    then dk/dv partial sums. The bf16 multi-query kernel sums dk/dv over all
-    heads in registers and keeps at most MAX_ROW_SPLITS slices per sample
-    (D rounded up to 4 floats, so the slices stay 16-byte aligned); the
-    other kernels keep one slice per (sample, head)."""
-    if kind == "mqa" and dtype == torch.bfloat16:
-        return -(-b * h * n // 4) * 4 + 2 * MAX_ROW_SPLITS * b * j * d
+    then dk/dv partial sums. The bf16 kernels keep dk/dv in registers: the
+    multi-query one sums over all heads and keeps at most MAX_ROW_SPLITS
+    slices per sample; the multi-head one writes dk/dv directly and keeps
+    `splits` slices per (sample, head) only where its dk/dv pass splits the
+    rows (`splits` > 1, from :func:`mha_row_splits`). D is rounded up to 4
+    floats there, so the slices stay 16-byte aligned. The float32 kernels
+    keep one slice per (sample, head)."""
+    if dtype == torch.bfloat16:
+        delta = -(-b * h * n // 4) * 4
+        if kind == "mqa":
+            return delta + 2 * MAX_ROW_SPLITS * b * j * d
+        return delta + (2 * splits * b * h * j * d if splits > 1 else 0)
     return b * h * n + 2 * b * h * j * d
+
+
+def mha_row_splits(q: torch.Tensor, j: int) -> int:
+    """Row splits the bf16 multi-head backward takes for q (b, h, n, 64) and
+    j keys on q's card (at most MAX_ROW_SPLITS)."""
+    b, h, n, _ = q.shape
+    with torch.cuda.device(q.device):
+        return kernels.library().mmt_mha_backward_row_splits(b, h, n, j)
 
 
 def attention_backward_kernel(kind: str, q, k, v, bias, out, g, lse):
@@ -171,8 +185,9 @@ def attention_backward_kernel(kind: str, q, k, v, bias, out, g, lse):
             or lse is None or tuple(lse.shape) != (b, h, n):
         raise ValueError(f"{kind}: output, cotangent or lse do not match q {tuple(q.shape)}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    scratch = torch.empty(backward_scratch_floats(kind, q.dtype, b, h, n, j), device=q.device,
-                          dtype=torch.float32)
+    splits = mha_row_splits(q, j) if kind == "mha" and q.dtype == torch.bfloat16 else 1
+    scratch = torch.empty(backward_scratch_floats(kind, q.dtype, b, h, n, j, splits=splits),
+                          device=q.device, dtype=torch.float32)
     kernels.launch(f"{kind}_backward", q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
                    out.data_ptr(), g.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                    dv.data_ptr(), scratch.data_ptr(), b, h, n, j, d,

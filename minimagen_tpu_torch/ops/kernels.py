@@ -51,7 +51,8 @@ SIGNATURES = {
 }
 # helpers that launch nothing: name -> argtypes (return int)
 QUERIES = {"mmt_group_norm_scratch_floats": [_I, _I, _I, _I],
-           "mmt_group_norm_bwd_scratch_floats": [_I, _I, _I, _I]}
+           "mmt_group_norm_bwd_scratch_floats": [_I, _I, _I, _I],
+           "mmt_mha_backward_row_splits": [_I, _I, _I, _I]}
 
 # kernel name -> launches since the last reset_launch_counts()
 LAUNCHES: Dict[str, int] = {name: 0 for name in (

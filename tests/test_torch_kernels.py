@@ -98,19 +98,44 @@ def test_library_name_tracks_source_hash(tmp_path, monkeypatch):
 @pytest.mark.parametrize("b,h,n,j", [(16, 8, 1024, 1025), (2, 8, 100, 101), (3, 1, 5, 7),
                                      (8193, 8, 16, 17)])
 def test_backward_scratch_is_sized_by_kind(b, h, n, j):
-    """The bf16 multi-query backward keeps D (rounded up to 4 floats) and at
-    most 4 float32 dk/dv slices per sample; the other kernels one slice per
-    (sample, head)."""
+    """The bf16 backwards keep D (rounded up to 4 floats): multi-query then
+    at most 4 float32 dk/dv slices per sample, multi-head none unless its
+    dk/dv pass splits the rows, then one slice per split and (sample, head);
+    the float32 kernels one slice per (sample, head)."""
     per_head = b * h * n + 2 * b * h * j * 64
     for kind in ("mqa", "mha"):
         assert tflash.backward_scratch_floats(kind, torch.float32, b, h, n, j) == per_head
-    assert tflash.backward_scratch_floats("mha", torch.bfloat16, b, h, n, j) == per_head
-    got = tflash.backward_scratch_floats("mqa", torch.bfloat16, b, h, n, j)
     delta = -(-b * h * n // 4) * 4
     assert delta % 4 == 0 and delta >= b * h * n
+    got = tflash.backward_scratch_floats("mqa", torch.bfloat16, b, h, n, j)
     assert got == delta + 2 * tflash.MAX_ROW_SPLITS * b * j * 64
+    assert tflash.backward_scratch_floats("mha", torch.bfloat16, b, h, n, j) == delta
+    for splits in (2, tflash.MAX_ROW_SPLITS):
+        got = tflash.backward_scratch_floats("mha", torch.bfloat16, b, h, n, j, splits=splits)
+        assert got == delta + 2 * splits * b * h * j * 64
     src = open(os.path.join(kernels.CSRC_DIR, "flash_attention.cu")).read()
     assert f"constexpr int kMaxRowSplits = {tflash.MAX_ROW_SPLITS};" in src
+
+
+def test_every_attention_kernel_falls_in_a_profile_family():
+    """Every __global__ kernel of csrc/flash_attention.cu carries a name tag of
+    ab_times.ATTENTION_FAMILIES, so the profiles attribute every attention
+    launch: the Hopper multi-query and multi-head kernels each a family of
+    their own; no bf16 mma.sync kernel is left."""
+    import re
+
+    from minimagen_tpu_torch.ab_times import ATTENTION_FAMILIES
+
+    src = open(os.path.join(kernels.CSRC_DIR, "flash_attention.cu")).read()
+    names = [re.search(r"(\w+_kernel)\s*\(", src[i:src.index("{", i)]).group(1)
+             for i in (m.start() for m in re.finditer(r"__global__", src))]
+    assert len(names) >= 7
+    for name in names:
+        assert [tag for tag in ATTENTION_FAMILIES.values() if tag in name], name
+    assert {n for n in names if n.startswith(("mqa_", "mha_"))} == {
+        "mqa_fwd_hopper_kernel", "mqa_bwd_dq_hopper_kernel", "mqa_bwd_dkdv_hopper_kernel",
+        "mha_fwd_hopper_kernel", "mha_bwd_dq_hopper_kernel", "mha_bwd_dkdv_hopper_kernel"}
+    assert not [n for n in names if "bf16" in n] and "mma.sync" not in src
 
 
 def test_c_signatures_declare_pointer_width_arguments():
@@ -193,6 +218,18 @@ ATTN_BWD_CASES = [("mqa", 2, 64, 65, False), ("mqa", 2, 1024, 1025, False),
                   ("mha", 2, 256, 261, True), ("mha", 2, 100, 7, True)]
 ATTN_BWD_CASES += [("mqa", 2, n, j, bias) for n, j in MQA_EDGES for bias in (False, True)
                    if ("mqa", 2, n, j, bias) not in ATTN_BWD_CASES]
+# (n, j) of the bf16 multi-head kernels' edges: n = 64 (one consumer
+# warpgroup), 100 (a ragged row tile), 256 and 1024; j = 7, 19, 21 (the tail
+# is the only tile), 64 and 320 (no ragged tail), 65 and 321 (a one-key
+# tail), 259 and 261 (the main path's narrow tails); each without and with
+# the bias
+MHA_EDGES = [(n, j) for n in (64, 100, 256, 1024) for j in (7, 19, 21, 64, 65, 259, 261, 320, 321)]
+ATTN_BWD_CASES += [("mha", 2, n, j, bias) for n, j in MHA_EDGES for bias in (False, True)
+                   if ("mha", 2, n, j, bias) not in ATTN_BWD_CASES]
+# 128 (sample, head)s, as on the lite path: forward blocks that walk 4 row
+# blocks of 4 warpgroups each, and 16 of 15 one-warpgroup row blocks (n 960)
+ATTN_BWD_CASES += [("mha", 16, 1024, 259, True), ("mha", 16, 1024, 261, False),
+                   ("mha", 16, 960, 259, True)]
 
 
 @pytest.mark.cuda
@@ -222,19 +259,20 @@ def test_attention_backward_kernels_match_plain_on_card(cuda, dtype, kind, b, n,
 
 
 @pytest.mark.cuda
-def test_mqa_bf16_kernels_launch_from_a_fresh_thread_on_card(cuda):
+@pytest.mark.parametrize("kind", ["mqa", "mha"])
+def test_mqa_bf16_kernels_launch_from_a_fresh_thread_on_card(cuda, kind):
     """A thread with no current CUDA context (as autograd's backward threads
-    may be) launches the multi-query kernels, whose tensor maps the CUDA driver
-    encodes on the host."""
+    may be) launches the multi-query and multi-head kernels, whose tensor
+    maps the CUDA driver encodes on the host."""
     import threading
 
-    q, k, v, g, _ = _attention_case(cuda, torch.bfloat16, "mqa", 2, 64, 65, False)
+    q, k, v, g, _ = _attention_case(cuda, torch.bfloat16, kind, 2, 64, 65, False)
     got, errors = [], []
 
     def run():
         try:
-            out, lse = tflash.attention_forward_kernel("mqa", q, k, v, None, with_lse=True)
-            got.extend([out, *tflash.attention_backward_kernel("mqa", q, k, v, None, out, g, lse)])
+            out, lse = tflash.attention_forward_kernel(kind, q, k, v, None, with_lse=True)
+            got.extend([out, *tflash.attention_backward_kernel(kind, q, k, v, None, out, g, lse)])
         except RuntimeError as e:
             errors.append(e)
 
@@ -242,7 +280,8 @@ def test_mqa_bf16_kernels_launch_from_a_fresh_thread_on_card(cuda):
     worker.start()
     worker.join()
     assert not errors, errors
-    refs = (tflash.mqa_plain(q, k, v), *tflash.mqa_bwd_plain(q, k, v, g))
+    plain, plain_bwd = tflash._PLAIN[kind]
+    refs = (plain(q, k, v), *plain_bwd(q, k, v, g))
     torch.cuda.synchronize()
     for name, a, r in zip(("out", "dq", "dk", "dv"), got, refs):
         assert float((a.float() - r.float()).abs().max()) <= _tol(torch.bfloat16, r.float()), name
