@@ -12,8 +12,10 @@ Phases, one line each with elapsed seconds; any failure exits non-zero:
    bfloat16 and float32, with the limit beside each max-abs difference, and
    the kernel's, the plain version's and one PyTorch call's median times
    (CUDA events around one call, the wrapper's host work included); for
-   attention also ``device_ms``, events around 20 launches back to back
-   over 20, for the kernel and for its yardstick (for multi-query the faster
+   attention and GroupNorm also ``device_ms``, events around 20 launches back
+   to back over 20 (GroupNorm rows also name the form each shape took and
+   time F.group_norm on the channels-last tensor, which does less work, for
+   reference), for the kernel and for attention's yardstick (for multi-query the faster
    of SDPA over K/V expanded to every head and SDPA's grouped-query form),
    and a bound that counts the exponentials (16 per SM per clock at the SM
    clock nvidia-smi reports) beside bytes and tensor operations.
@@ -26,9 +28,9 @@ Phases, one line each with elapsed seconds; any failure exits non-zero:
    base 0.0245, truncated 0.0189).
 8. a measurement, not a check: the host time of 5 guided DDIM steps per
    stage, and a torch.profiler trace of them for the device's busy time and
-   its largest kernels, and the device ms per step of each attention
-   kernel family (the wgmma multi-query kernels, the wgmma multi-head
-   kernels, the float32 attention_ kernels, the dk/dv slice sum).
+   its largest kernels, and the device ms per step of each kernel family
+   (the wgmma multi-query kernels, the wgmma multi-head kernels, the
+   float32 attention_ kernels, the dk/dv slice sum, GroupNorm).
 9. record the training step's kernel shapes: one step of both stages at
    batch 16 with hooks on the modules that call the kernels.
 10. backward kernels against their plain versions at those shapes, in
@@ -50,7 +52,7 @@ Phases, one line each with elapsed seconds; any failure exits non-zero:
    1.5x the committed run's (base 0.25, SR 1.10) and below its own mean
    over steps 1-200, every loss finite, every backward kernel launched.
 13. a measurement, not a check: host ms per training step and a
-   torch.profiler trace of 5 steps, with the attention families as in
+   torch.profiler trace of 5 steps, with the kernel families as in
    phase 8.
 
 The reference's default cascade (``generate.default_imagen``: Base at 64px,
@@ -80,8 +82,9 @@ objects are freed:
 The lite sampling profile (phase 8) also times the stem alone (a
 record_function range around it, and a trace of the SR stem by itself).
 
-Then it prints the kernels' JSON line (attention entries also carry
-``device_ms`` and ``library_device_ms``), the card's name and power limit, and
+Then it prints the kernels' JSON line (attention and GroupNorm entries also
+carry ``device_ms``, attention ``library_device_ms``, GroupNorm the
+``form``), the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. It exits non-zero without a result when no CUDA card is present or the
 package is missing.
 """
@@ -136,7 +139,9 @@ KERNEL_INFO = {
                     "mha_fwd_hopper_kernel: TMA ring, wgmma, per-head K/V, narrow tail first, "
                     "row blocks of a head in turn"),
     "group_norm_forward": ("minimagen_tpu_torch/csrc/group_norm.cu",
-                           "minimagen_tpu/ops/group_norm.py:89", "group_partial/apply_kernel"),
+                           "minimagen_tpu/ops/group_norm.py:89",
+                           "gn_fwd_cluster_kernel (a sample held across a cluster, one launch) or "
+                           "gn_fwd_stats/apply_kernel (tile statistics, Chan merge, two launches)"),
     "depth_to_space_bias": ("minimagen_tpu_torch/csrc/depth_to_space.cu",
                             "minimagen_tpu/ops/stem_conv.py:146", "depth_to_space_bias_kernel"),
 }
@@ -150,7 +155,8 @@ BACKWARD_INFO = {
                      "bf16 dk/dv from registers"),
     "group_norm_backward": ("minimagen_tpu_torch/csrc/group_norm.cu",
                             "minimagen_tpu/ops/group_norm.py:156",
-                            "gn_bwd_partial/fold/param/apply_kernel"),
+                            "gn_bwd_cluster_kernel (one launch) or gn_bwd_partial/apply_kernel "
+                            "(two launches)"),
 }
 # the default cascade: captions served, training batch (train.py's
 # --BATCH_SIZE) and steps, and its caption length (--MAX_NUM_WORDS)
@@ -218,13 +224,13 @@ def traced(fn, ranges=()):
     return items, spans
 
 
-def attention_families(items, steps):
-    """Device ms per step of each attention kernel family of
-    minimagen_tpu_torch/ab_times.py (by kernel name) among trace items."""
-    from minimagen_tpu_torch.ab_times import ATTENTION_FAMILIES
+def kernel_families(items, steps):
+    """Device ms per step of each kernel family of
+    minimagen_tpu_torch/ab_times.py (attention by kind, GroupNorm; by kernel
+    name) among trace items."""
+    from minimagen_tpu_torch.ab_times import family_ms
 
-    return {family: sum(us for name, us in items if tag in name) / 1e3 / steps
-            for family, tag in ATTENTION_FAMILIES.items()}
+    return family_ms(items, steps)
 
 
 def stem_ranges(imagen):
@@ -479,9 +485,17 @@ def check_group_norm(shape, dtype, gen):
     err = float((out.float() - ref.float()).abs().max())
     row = dict(kernel="group_norm_forward", shape=list(shape), dtype=name, max_abs_err=err,
                limit=_limit(name, ref.float()))
+    if DEVICE == "cuda":
+        row["form"] = gn.plan_info(False, x, g)["form"]
     row["ms"] = median_ms(lambda: gn.group_norm_silu(x, gamma, beta, **kw))
+    row["device_ms"] = device_ms(lambda: gn.group_norm_silu(x, gamma, beta, **kw))
     row["plain_ms"] = median_ms(lambda: gn.group_norm_silu_plain(x, gamma, beta, **kw))
     row["library_ms"] = None  # no single PyTorch call fuses norm, scale-shift and SiLU
+    # for reference only, doing less work (no scale-shift, no SiLU): PyTorch's
+    # GroupNorm on the channels-last tensor
+    xc = x.permute(0, 3, 1, 2)
+    row["torch_group_norm_device_ms"] = device_ms(
+        lambda: torch.nn.functional.group_norm(xc, g, gamma, beta))
     nbytes = (2 * x.numel() + 2 * c + (2 * b * c if with_ss else 0)) * x.element_size()
     # ~12 float32 operations per element on the CUDA cores, whatever the input type
     row.update(_bound(nbytes, 12 * x.numel(), "float32"))
@@ -683,14 +697,14 @@ def profile_steps(imagen, captions, steps=5):
         top = sorted(kernels_us, key=lambda kv: -kv[1])[:8]
         row = dict(stage=stage, wall_ms_per_step=wall_ms, device_busy_ms_per_step=busy_ms,
                    stem_ms_per_step=stem_ms,
-                   attention_ms_per_step=attention_families(kernels_us, steps),
+                   family_ms_per_step=kernel_families(kernels_us, steps),
                    top=[(name[:60], us / 1e3 / steps) for name, us in top])
         out.append(row)
         log(f"  stage {stage}: wall {wall_ms:.2f} ms/step, device busy {busy_ms:.2f} ms/step "
             f"({'not measured' if busy_ms == 0 else f'{100 * busy_ms / wall_ms:.0f}%'}), "
             f"stem (record_function range) {stem_ms:.3f} ms/step")
-        log("    attention kernels by family, device ms/step: "
-            + ", ".join(f"{k} {v:.3f}" for k, v in row["attention_ms_per_step"].items()))
+        log("    kernels by family, device ms/step: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in row["family_ms_per_step"].items()))
         for name, ms in row["top"]:
             log(f"    {ms:8.3f} ms/step  {name}")
     return out
@@ -840,8 +854,12 @@ def check_group_norm_backward(shape, dtype, gen):
     err, lim = _worst([(a, r) for a, r in zip(got, ref) if r is not None], name)
     row = dict(kernel="group_norm_backward", shape=list(shape), dtype=name, max_abs_err=err,
                limit=lim)
-    row["ms"] = median_ms(lambda: gn.group_norm_backward_kernel(
-        x, gamma, beta, scale, shift, mean, rstd, g, **kw))
+    if DEVICE == "cuda":
+        row["form"] = gn.plan_info(True, x, groups)["form"]
+    call = lambda: gn.group_norm_backward_kernel(  # noqa: E731
+        x, gamma, beta, scale, shift, mean, rstd, g, **kw)
+    row["ms"] = median_ms(call)
+    row["device_ms"] = device_ms(call)
     row["plain_ms"] = median_ms(lambda: gn.group_norm_silu_bwd_plain(
         x, gamma, beta, scale, shift, mean, rstd, g, **kw))
     row["library_ms"] = None  # no single PyTorch call computes this backward
@@ -865,7 +883,8 @@ def _report(rows):
         lib_dev = (f" (device {r['library_device_ms']:.4f}, {r['library_form']})"
                    if "library_device_ms" in r else "")
         log(f"  {r['kernel']:<19} {r['dtype']:<8} {str(tuple(r['shape'])):<28}"
-            f"{' +bias' if r.get('bias') else ''} "
+            f"{' +bias' if r.get('bias') else ''}"
+            f"{' ' + r['form'] if r.get('form') else ''} "
             f"max_abs_err {r['max_abs_err']:.3e} (limit {r['limit']:.3e}) "
             f"kernel {r['ms']:.4f}{dev} ms plain {r['plain_ms']:.4f} ms "
             f"library {lib if lib is None else round(lib, 4)}{lib_dev} ms "
@@ -875,7 +894,10 @@ def _report(rows):
             + (f"; biased forward {r['fwd_ms']:.4f} (device {r['fwd_device_ms']:.4f}) ms plain "
                f"{r['fwd_plain_ms']:.4f} ms library {r['fwd_library_ms']:.4f} (device "
                f"{r['fwd_library_device_ms']:.4f}) ms bound {r['fwd_bound_ms']:.4f} ms"
-               if "fwd_ms" in r else ""))
+               if "fwd_ms" in r else "")
+            + (f"; F.group_norm channels-last, no scale-shift or SiLU (less work): device "
+               f"{r['torch_group_norm_device_ms']:.4f} ms"
+               if "torch_group_norm_device_ms" in r else ""))
         if not ok:
             bad.append(r)
     if bad:
@@ -1024,8 +1046,8 @@ def profile_train(run, steps=5):
     busy_ms = sum(us for _, us in items) / 1e3 / steps
     log(f"  train step: wall {wall_ms:.2f} ms/step, device busy {busy_ms:.2f} ms/step "
         f"({'not measured' if busy_ms == 0 else f'{100 * busy_ms / wall_ms:.0f}%'})")
-    log("    attention kernels by family, device ms/step: " + ", ".join(
-        f"{k} {v:.3f}" for k, v in attention_families(items, steps).items()))
+    log("    kernels by family, device ms/step: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in kernel_families(items, steps).items()))
     for name, us in sorted(items, key=lambda kv: -kv[1])[:10]:
         log(f"    {us / 1e3 / steps:8.3f} ms/step  {name[:70]}")
     return dict(wall_ms_per_step=wall_ms, device_busy_ms_per_step=busy_ms)
@@ -1304,7 +1326,7 @@ def kernel_entries(rows, launches):
                      max_abs_err=top["max_abs_err"], ms=top["ms"],
                      plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
                      bound_by=top["bound_by"], library_ms=top["library_ms"])
-        for key in ("device_ms", "library_device_ms"):  # attention rows: 20 launches back to back
+        for key in ("device_ms", "library_device_ms", "form"):  # device: 20 launches back to back
             if key in top:
                 entry[key] = top[key]
         entries.append(entry)

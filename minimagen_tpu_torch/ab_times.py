@@ -1,8 +1,9 @@
-"""Time the port's attention, GroupNorm and depth-to-space kernels at the lite paths' heaviest
-shapes, and guided sampling steps of the lite cascade, to compare two
-checkouts on one card.
+"""Time the port's attention, GroupNorm and depth-to-space kernels at the
+lite paths' heaviest shapes (GroupNorm also at the default cascade's widest
+and at a shape of each form), and guided sampling steps of the lite
+cascade, to compare two checkouts on one card.
 
-    python minimagen_tpu_torch/ab_times.py --root PATH [--reps 50] [--kernels K,...]
+    python minimagen_tpu_torch/ab_times.py --root PATH [--reps 50] [--kernels K,...] [--forms]
 
 imports ``minimagen_tpu_torch`` from the checkout at PATH (so this file can
 time an older tree), builds its kernels and prints one JSON line: the
@@ -13,11 +14,12 @@ to back over 20 (``device_ms``: the queue runs ahead of the host); per lite
 stage the host ms per guided DDIM step (8 captions, 16 rows, random weights
 and text encodings: the time does not depend on their values), the median
 of `reps` // 10 runs of 5 steps, each ending in a synchronize; and the
-device ms per step of each attention kernel family (by kernel name) in
-those steps and in a lite train step (batch 16), from a torch.profiler
-trace. ``--kernels`` times only the named kernels (e.g. mha_forward,
+device ms per step of each kernel family (attention by kind, and
+GroupNorm; by kernel name) in those steps and in a lite train step (batch
+16), from a torch.profiler trace. ``--kernels`` times only the named kernels (e.g. mha_forward,
 mha_backward) and no steps: the card then runs nothing else between their
-launches. Run it for trees A
+launches. ``--forms`` times only GroupNorm's cluster and streaming forms at
+FORM_SHAPES (the measurements behind the form rule). Run it for trees A
 and B in turns (A, B, B, A) within one call: the card and its neighbours
 then stay the same.
 """
@@ -29,14 +31,22 @@ import sys
 import time
 
 # (kernel, shape): attention (b, h, n, j), GroupNorm (b, h, w, c, with scale-shift),
-# depth-to-space + bias (b, h, w, f*f*c, f)
+# depth-to-space + bias (b, h, w, f*f*c, f); torch_group_norm is
+# F.group_norm on the channels-last tensor, a row for reference that does
+# less work (no scale-shift, no SiLU) and is no yardstick of the kernels
 SHAPES = [("mqa_forward", (16, 8, 1024, 1025)), ("mha_forward", (16, 8, 1024, 259)),
           ("mqa_backward", (16, 8, 1024, 1025)), ("mha_backward", (16, 8, 1024, 259)),
           ("group_norm_forward", (16, 256, 256, 32, False)),
           ("group_norm_forward", (16, 256, 256, 32, True)),
+          ("group_norm_forward", (16, 128, 128, 64, True)),
           ("group_norm_forward", (16, 64, 64, 64, True)),
+          ("group_norm_forward", (8, 8, 8, 3584, True)),
           ("group_norm_backward", (16, 256, 256, 32, False)),
+          ("group_norm_backward", (16, 128, 128, 64, True)),
           ("group_norm_backward", (16, 64, 64, 64, True)),
+          ("group_norm_backward", (2, 8, 8, 2048, True)),
+          ("torch_group_norm", (16, 256, 256, 32, False)),
+          ("torch_group_norm", (16, 64, 64, 64, False)),
           ("depth_to_space_bias", (16, 64, 64, 512, 4))]
 
 
@@ -79,10 +89,23 @@ def device_ms(fn, reps, inner=20):
 ATTENTION_FAMILIES = {"mqa (wgmma)": "mqa_", "mha (wgmma)": "mha_",
                       "attention_ (float32; older trees' mma.sync)": "attention_",
                       "kv_reduce": "kv_reduce"}
+# GroupNorm by name tags: the gn_ kernels (and older trees' group_partial /
+# group_apply forward kernels)
+GROUP_NORM_TAGS = ("gn_", "group_partial", "group_apply")
+# every family whose device ms per step the profiles report: family -> tags
+FAMILIES = {**{family: (tag,) for family, tag in ATTENTION_FAMILIES.items()},
+            "group_norm": GROUP_NORM_TAGS}
 
 
-def attention_ms(fn, calls):
-    """Device ms per call of `fn` of each attention kernel family, from a
+def family_ms(items, calls):
+    """Device ms per call of each family of FAMILIES among (kernel name,
+    device us) trace items of `calls` calls."""
+    return {family: sum(us for name, us in items if any(t in name for t in tags)) / 1e3 / calls
+            for family, tags in FAMILIES.items()}
+
+
+def traced_family_ms(fn, calls):
+    """Device ms per call of `fn` of each kernel family, from a
     torch.profiler trace of `calls` calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -91,13 +114,50 @@ def attention_ms(fn, calls):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    out = {family: 0.0 for family in ATTENTION_FAMILIES}
-    for e in prof.key_averages():
-        if e.device_type.name != "CUDA" or e.self_device_time_total <= 0:
-            continue
-        for family, tag in ATTENTION_FAMILIES.items():
-            if tag in e.key:
-                out[family] += e.self_device_time_total / 1e3 / calls
+    items = [(e.key, e.self_device_time_total) for e in prof.key_averages()
+             if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
+    return family_ms(items, calls)
+
+
+# (b, h, w, c): GroupNorm shapes of the lite and default paths at which
+# --forms times both forms, the 8x8 maps on either side of the form rule's
+# sample count and larger maps
+FORM_SHAPES = [(16, 8, 8, 256), (8, 8, 8, 1024), (8, 8, 8, 3584), (2, 8, 8, 2048),
+               (16, 16, 16, 256), (8, 16, 16, 512), (16, 64, 64, 64), (16, 64, 64, 128),
+               (16, 256, 256, 32)]
+
+
+def form_times(gen, calls=20):
+    """Per GroupNorm shape of FORM_SHAPES, bf16 with scale-shift and SiLU:
+    the form the rule takes, and for each form (where it fits) the forward's
+    and backward's device ms per call, the group_norm family's kernels in a
+    torch.profiler trace of `calls` calls."""
+    import torch
+    from minimagen_tpu_torch.ops import group_norm as gn
+
+    out = {}
+    for b, h, w, c in FORM_SHAPES:
+        rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(torch.bfloat16)  # noqa: E731
+        x, g, gamma, beta = rnd(b, h, w, c), rnd(b, h, w, c), rnd(c) * 0.2 + 1.0, rnd(c) * 0.1
+        scale, shift = rnd(b, 1, 1, c) * 0.3, rnd(b, 1, 1, c) * 0.3
+        row = {"rule": [gn.plan_info(False, x, 8)["form"], gn.plan_info(True, x, 8)["form"]]}
+        for form in ("cluster", "stream"):
+            kw = dict(groups=8, silu=True, form=form)
+            for name in ("forward", "backward"):
+                try:
+                    gn.plan_info(name == "backward", x, 8, form)
+                except ValueError:  # the slab does not fit a cluster
+                    continue
+                _, mean, rstd = gn.group_norm_forward_kernel(x, gamma, beta, scale, shift,
+                                                             eps=1e-5, **kw)
+                call = (lambda: gn.group_norm_forward_kernel(x, gamma, beta, scale, shift,
+                                                             eps=1e-5, **kw)) \
+                    if name == "forward" else \
+                    (lambda: gn.group_norm_backward_kernel(x, gamma, beta, scale, shift, mean,
+                                                           rstd, g, **kw))
+                call()
+                row[f"{name} {form}"] = traced_family_ms(call, calls)["group_norm"]
+        out[str((b, h, w, c))] = row
     return out
 
 
@@ -126,6 +186,11 @@ def launcher(kernel, shape, gen):
         return lambda: fa.attention_backward_kernel(kind, q, k, v, None, out, g, lse)
     b, h, w, c, with_ss = shape
     x, gamma, beta = rnd(b, h, w, c), rnd(c) * 0.2 + 1.0, rnd(c) * 0.1
+    if kernel == "torch_group_norm":
+        import torch.nn.functional as F
+
+        xc = x.permute(0, 3, 1, 2)  # NCHW view of the NHWC tensor: channels-last strides
+        return lambda: F.group_norm(xc, 8, gamma, beta)
     scale, shift = (rnd(b, 1, 1, c) * 0.3, rnd(b, 1, 1, c) * 0.3) if with_ss else (None, None)
     kw = dict(groups=8, silu=True)
     if kernel.endswith("forward"):
@@ -137,7 +202,7 @@ def launcher(kernel, shape, gen):
 
 def step_ms(stage, runs, steps=5):
     """Host ms per guided DDIM step of lite stage `stage` at 8 captions, and
-    the attention kernels' device ms per step."""
+    the kernel families' device ms per step."""
     import torch
     from minimagen_tpu_torch.generate import lite_imagen
 
@@ -164,12 +229,12 @@ def step_ms(stage, runs, steps=5):
         t0 = time.perf_counter()
         run()
         times.append((time.perf_counter() - t0) * 1e3 / steps)
-    attn = {k: v / steps for k, v in attention_ms(run, 1).items()}
-    return statistics.median(times), attn
+    fams = {k: v / steps for k, v in traced_family_ms(run, 1).items()}
+    return statistics.median(times), fams
 
 
-def train_attention_ms(steps=3):
-    """The attention kernels' device ms per lite train step (batch 16)."""
+def train_family_ms(steps=3):
+    """The kernel families' device ms per lite train step (batch 16)."""
     from minimagen_tpu_torch.training import train_lite
 
     run = train_lite(1, 16, items=32, device="cuda")
@@ -178,7 +243,7 @@ def train_attention_ms(steps=3):
         k = run.state.step % run.batches["image"].shape[0]
         run.step_fn(run.state, {name: v[k] for name, v in run.batches.items()}, seed=0)
 
-    return attention_ms(go, steps)
+    return traced_family_ms(go, steps)
 
 
 def main(argv=None):
@@ -186,6 +251,8 @@ def main(argv=None):
     p.add_argument("--root", required=True, help="checkout whose minimagen_tpu_torch is timed")
     p.add_argument("--reps", type=int, default=50)
     p.add_argument("--kernels", help="comma-separated kernel names to time alone (no steps)")
+    p.add_argument("--forms", action="store_true",
+                   help="only GroupNorm's two forms at FORM_SHAPES (this tree's package)")
     args = p.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
@@ -197,6 +264,10 @@ def main(argv=None):
 
     kernels.library()
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if args.forms:
+        print(json.dumps({"card": torch.cuda.get_device_name(0), "root": args.root,
+                          "group_norm_forms_device_ms": form_times(gen)}), flush=True)
+        return 0
     only = set(args.kernels.split(",")) if args.kernels else None
     times, device = {}, {}
     for k, s in SHAPES:
@@ -205,16 +276,16 @@ def main(argv=None):
         fn = launcher(k, s, gen)
         times[f"{k} {s}"] = median_ms(fn, args.reps)
         device[f"{k} {s}"] = device_ms(fn, max(1, args.reps // 5))
-    steps, attention = {}, {}
+    steps, families = {}, {}
     if only is None:
         for i in (0, 1):
-            steps[f"lite stage {i} host ms/step"], attention[f"lite stage {i}"] = \
+            steps[f"lite stage {i} host ms/step"], families[f"lite stage {i}"] = \
                 step_ms(i, max(1, args.reps // 10))
-        attention["lite train step"] = train_attention_ms()
+        families["lite train step"] = train_family_ms()
     print(json.dumps({"card": torch.cuda.get_device_name(0), "root": args.root,
                       "package": os.path.dirname(kernels.__file__), "median_ms": times,
                       "device_ms": device, "steps": steps,
-                      "attention_device_ms_per_step": attention}), flush=True)
+                      "family_device_ms_per_step": families}), flush=True)
     return 0
 
 

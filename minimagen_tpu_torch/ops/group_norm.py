@@ -2,8 +2,11 @@
 (counterpart of ``minimagen_tpu/ops/group_norm.py``).
 
 The Pallas kernels ``_fwd_kernel`` (:89) and ``_bwd_kernel`` (:156) are
-``csrc/group_norm.cu`` here (design notes there). Beside them are the plain
-versions: the forward copies the cast order of the JAX package's
+``csrc/group_norm.cu`` here (design notes there): per call a plan, made once
+per shape and cached, picks the streaming form (two launches) or the
+cluster form (one launch) and the vector width. Beside them are the plain
+versions (and ``group_stats_tiles_plain``, the streaming form's statistics
+modelled on the CPU): the forward copies the cast order of the JAX package's
 ``_xla_forward_reference`` (:296-312): float32 statistics, the normalised
 value cast to the activation dtype, then gamma, beta, scale-shift and SiLU in
 the activation dtype; the backward is the float32 closed form of its
@@ -18,6 +21,7 @@ launches the kernels or raises.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -55,6 +59,41 @@ def group_stats_plain(x: torch.Tensor, groups: int, eps: float = 1e-5):
     mean = xg.mean(dim=(1, 2, 4))
     var = (xg - mean[:, None, None, :, None]).square().mean(dim=(1, 2, 4))
     return mean, torch.rsqrt(var + eps)
+
+
+def group_stats_tiles_plain(x: torch.Tensor, groups: int, tile_pixels: int,
+                            tiles_per_part: Optional[int] = None, eps: float = 1e-5):
+    """The streaming form's (b, groups) mean and rstd: per tile of
+    `tile_pixels` pixels (the last may be shorter) and group, the two-pass
+    mean and centred M2; the tiles of each run of `tiles_per_part` (one run
+    of all tiles by default) merged with Chan's formula in tile order, then
+    the runs in order, as ``csrc/group_norm.cu`` (``gn_fwd_stats_kernel``,
+    ``merge_parts``) does. E[x^2] - mean^2 is never formed."""
+    b, h, w, c = x.shape
+    f = acc_dtype(x.dtype)
+    xg = x.reshape(b, h * w, groups, c // groups).to(f)
+    tiles = -(-(h * w) // tile_pixels)
+    per_part = tiles_per_part or tiles
+
+    def merge(into, part):
+        n, mean, m2 = into
+        nb, mb, m2b = part
+        nn = n + nb
+        d = mb - mean
+        return nn, mean + d * (nb / nn), (m2 + m2b) + d * d * (n * nb / nn)
+
+    zero = torch.zeros(b, groups, dtype=f, device=x.device)
+    total = (0.0, zero, zero)
+    for p0 in range(0, tiles, per_part):
+        run = (0.0, zero, zero)
+        for t in range(p0, min(tiles, p0 + per_part)):
+            tile = xg[:, t * tile_pixels:(t + 1) * tile_pixels]
+            nb = float(tile.shape[1] * (c // groups))
+            tmean = tile.sum(dim=(1, 3)) / nb
+            run = merge(run, (nb, tmean, (tile - tmean[:, None, :, None]).square().sum(dim=(1, 3))))
+        total = merge(total, run)
+    n, mean, m2 = total
+    return mean, torch.rsqrt(m2 / n + eps)
 
 
 def group_norm_silu_bwd_plain(x, gamma, beta, scale, shift, mean, rstd, g, *, groups: int,
@@ -101,6 +140,61 @@ def group_norm_silu_bwd_plain(x, gamma, beta, scale, shift, mean, rstd, g, *, gr
 # --------------------------------------------------------------------------- #
 # kernel launches                                                              #
 # --------------------------------------------------------------------------- #
+# A call's plan (csrc/group_norm.cu::Plan, 16 ints): the fields read here
+PLAN_INTS, PLAN_FORM, PLAN_NV, PLAN_PARTS, PLAN_TILE_PIXELS, PLAN_TILES_PER_PART = 16, 0, 1, 4, 6, 9
+PLAN_SCRATCH = 12
+FORMS = {None: 0, "cluster": 1, "stream": 2}
+FORM_NAMES = {1: "cluster", 2: "stream"}
+_plans = {}    # (backward, device, sizes, dtype, vector bytes, form) -> ctypes int array
+_tickets = {}  # (device, stream) -> the backward's int32 ticket, left 0 by every call
+
+
+def vector_bytes(c: int, itemsize: int, *tensors: torch.Tensor) -> int:
+    """The widest vector (16, 8, 4 or 2 bytes, at least one element) that
+    divides a row of c channels and every tensor's address."""
+    bits = c * itemsize | 16
+    for t in tensors:
+        bits |= t.data_ptr()
+    return max(itemsize, bits & -bits)
+
+
+def plan(backward: bool, shape, dtype: torch.dtype, device: int, groups: int,
+         vec_bytes: int = 16, form: Optional[str] = None):
+    """The kernels' plan of a call on card `device` (form, vector width,
+    grid, scratch), made once per shape by ``mmt_group_norm_plan`` (which
+    asks the card whether a cluster fits) and cached."""
+    b, h, w, c = shape
+    key = (backward, device, b, h * w, c, groups, dtype, vec_bytes, form)
+    arr = _plans.get(key)
+    if arr is None:
+        arr = (ctypes.c_int * PLAN_INTS)()
+        status = kernels.library().mmt_group_norm_plan(
+            int(backward), b, h * w, c, groups, kernels.DTYPE_CODES[dtype], vec_bytes,
+            FORMS[form], ctypes.addressof(arr))
+        if status != 0:
+            raise ValueError(f"group_norm: no {form or 'kernel'} form for {tuple(shape)} "
+                             f"{dtype} with {groups} groups")
+        _plans[key] = arr
+    return arr
+
+
+def plan_info(backward: bool, x: torch.Tensor, groups: int, form: Optional[str] = None) -> dict:
+    """The form, vector width, blocks per (sample, slice), and the streaming
+    statistics' tile pixels and tiles per block that the kernels take for x
+    (b, h, w, c) on its card."""
+    arr = plan(bool(backward), x.shape, x.dtype, x.get_device(), groups,
+               vector_bytes(x.shape[-1], x.element_size(), x), form)
+    return dict(form=FORM_NAMES[arr[PLAN_FORM]], vector=arr[PLAN_NV], parts=arr[PLAN_PARTS],
+                tile_pixels=arr[PLAN_TILE_PIXELS], tiles_per_part=arr[PLAN_TILES_PER_PART])
+
+
+def _ticket(device: int, stream: int) -> torch.Tensor:
+    t = _tickets.get((device, stream))
+    if t is None:
+        t = _tickets[(device, stream)] = torch.zeros(1, dtype=torch.int32, device=device)
+    return t
+
+
 def _scale_shift_rows(scale, shift, x):
     """Scale/shift (b, 1, 1, c) of x's dtype as rows of c contiguous values
     one stride apart (the halves of the time MLP's output, read in place)."""
@@ -120,35 +214,43 @@ def _check_scale_shift(scale, shift, x):
                              f"device, got {tuple(t.shape)} {t.dtype}")
 
 
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def group_norm_forward_kernel(x, gamma, beta, scale, shift, *, groups: int, eps: float,
-                              silu: bool):
-    """Launch the forward kernel; x (b, h, w, c) contiguous, gamma/beta (c,)
+                              silu: bool, form: Optional[str] = None):
+    """Launch the forward kernels; x (b, h, w, c) contiguous, gamma/beta (c,)
     and scale/shift (b, 1, 1, c) or None, all of x's dtype. Returns
-    (y, mean, rstd), the statistics (b, groups) float32."""
+    (y, mean, rstd), the statistics (b, groups) float32. `form` ("cluster"
+    or "stream") overrides the rule, for tests and measurements."""
     b, h, w, c = x.shape
     kernels.require_cuda("group_norm_forward", x, gamma, beta)
     _check_scale_shift(scale, shift, x)
     scale, shift, ss_stride = _scale_shift_rows(scale, shift, x)
-    lib = kernels.library()
-    n_scratch = lib.mmt_group_norm_scratch_floats(b, h * w, c, groups)
-    floats = torch.empty(2 * b * groups + n_scratch, device=x.device, dtype=torch.float32)
-    mean, rstd = floats[: b * groups], floats[b * groups: 2 * b * groups]
     y = torch.empty_like(x)
+    p = plan(False, x.shape, x.dtype, x.get_device(), groups,
+             vector_bytes(c, x.element_size(), x, y), form)
+    # mean, rstd, then the scratch, in (b, groups) planes of float32 (views
+    # cost more host time than a whole allocation)
+    n_scratch, plane = p[PLAN_SCRATCH], b * groups
+    floats = torch.empty(2 + -(-n_scratch // plane), b, groups, device=x.device,
+                         dtype=torch.float32)
+    at = floats.data_ptr()
     kernels.launch(
-        "group_norm_forward", x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-        None if scale is None else scale.data_ptr(), None if shift is None else shift.data_ptr(),
-        ss_stride, y.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-        floats[2 * b * groups:].data_ptr(), n_scratch, b, h * w, c, groups, float(eps),
-        int(silu), kernels.DTYPE_CODES[x.dtype], kernels.current_stream(x))
-    return y, mean.view(b, groups), rstd.view(b, groups)
+        "group_norm_forward", x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), _ptr(scale),
+        _ptr(shift), ss_stride, y.data_ptr(), at, at + 4 * plane, at + 8 * plane, n_scratch, b,
+        h * w, c, groups, float(eps), int(silu), kernels.DTYPE_CODES[x.dtype],
+        ctypes.addressof(p), kernels.current_stream(x))
+    return y, floats[0], floats[1]
 
 
 def group_norm_backward_kernel(x, gamma, beta, scale, shift, mean, rstd, g, *, groups: int,
-                               silu: bool):
-    """Launch the backward kernel; arguments as for the forward plus the
+                               silu: bool, form: Optional[str] = None):
+    """Launch the backward kernels; arguments as for the forward plus the
     forward's mean/rstd and the output cotangent g (b, h, w, c) contiguous.
     Returns (dx, dgamma, dbeta, dscale, dshift) like the plain version, the
-    parameter and scale-shift gradients float32."""
+    parameter and scale-shift gradients float32 views of one buffer."""
     b, h, w, c = x.shape
     kernels.require_cuda("group_norm_backward", x, gamma, beta, g)
     _check_scale_shift(scale, shift, x)
@@ -156,23 +258,27 @@ def group_norm_backward_kernel(x, gamma, beta, scale, shift, mean, rstd, g, *, g
             or tuple(rstd.shape) != (b, groups):
         raise ValueError("group_norm_backward: cotangent or statistics do not match x")
     scale, shift, ss_stride = _scale_shift_rows(scale, shift, x)
-    lib = kernels.library()
-    n_scratch = lib.mmt_group_norm_bwd_scratch_floats(b, h * w, c, groups)
-    f32 = dict(device=x.device, dtype=torch.float32)
-    scratch = torch.empty(n_scratch, **f32)
-    dgamma, dbeta = torch.empty(c, **f32), torch.empty(c, **f32)
-    dscale = dshift = None
-    if scale is not None:
-        dscale, dshift = torch.empty(b, c, **f32), torch.empty(b, c, **f32)
     dx = torch.empty_like(x)
+    device = x.get_device()
+    p = plan(True, x.shape, x.dtype, device, groups,
+             vector_bytes(c, x.element_size(), x, g, dx), form)
+    # rows of c float32: dgamma, dbeta, (with scale-shift) b of dscale and b
+    # of dshift, then the scratch
+    n_scratch, ss_rows = p[PLAN_SCRATCH], (0 if scale is None else b)
+    rows = torch.empty(2 + 2 * ss_rows + -(-n_scratch // c), c, device=x.device,
+                       dtype=torch.float32)
+    at = rows.data_ptr()
+    stream = kernels.current_stream(x)
     kernels.launch(
         "group_norm_backward", x.data_ptr(), g.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-        None if scale is None else scale.data_ptr(), None if shift is None else shift.data_ptr(),
-        ss_stride, mean.contiguous().data_ptr(), rstd.contiguous().data_ptr(), dx.data_ptr(),
-        dgamma.data_ptr(), dbeta.data_ptr(), None if dscale is None else dscale.data_ptr(),
-        None if dshift is None else dshift.data_ptr(), scratch.data_ptr(), n_scratch, b, h * w,
-        c, groups, int(silu), kernels.DTYPE_CODES[x.dtype], kernels.current_stream(x))
-    return dx, dgamma, dbeta, dscale, dshift
+        _ptr(scale), _ptr(shift), ss_stride, mean.contiguous().data_ptr(),
+        rstd.contiguous().data_ptr(), dx.data_ptr(), at, at + 4 * c,
+        None if scale is None else at + 8 * c, None if scale is None else at + 4 * (2 + b) * c,
+        at + 4 * (2 + 2 * ss_rows) * c, n_scratch, _ticket(device, stream).data_ptr(), b, h * w,
+        c, groups, int(silu), kernels.DTYPE_CODES[x.dtype], ctypes.addressof(p), stream)
+    if scale is None:
+        return dx, rows[0], rows[1], None, None
+    return dx, rows[0], rows[1], rows[2:2 + b], rows[2 + b:2 + 2 * b]
 
 
 # --------------------------------------------------------------------------- #

@@ -43,15 +43,18 @@ SIGNATURES = {
     "mmt_mha_forward": _ATTN_FWD,
     "mmt_mqa_backward": _ATTN_BWD,
     "mmt_mha_backward": _ATTN_BWD,
+    # x gamma beta scale shift, ss_stride, y mean rstd scratch, scratch_floats, b hw c groups,
+    # eps, silu dtype, plan, stream
     "mmt_group_norm_forward": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               ctypes.c_float, _I, _I, _P],
+                               ctypes.c_float, _I, _I, _P, _P],
+    # x dy gamma beta scale shift, ss_stride, mean rstd dx dgamma dbeta dscale dshift scratch,
+    # scratch_floats, ticket, b hw c groups silu dtype, plan, stream
     "mmt_group_norm_backward": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                                _I, _I, _I, _I, _I, _I, _I, _P],
+                                _I, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     "mmt_depth_to_space_bias": [_P, _P, _P] + [_I] * 6 + [_P],  # y2 bias out, b h w f c dtype
 }
 # helpers that launch nothing: name -> argtypes (return int)
-QUERIES = {"mmt_group_norm_scratch_floats": [_I, _I, _I, _I],
-           "mmt_group_norm_bwd_scratch_floats": [_I, _I, _I, _I],
+QUERIES = {"mmt_group_norm_plan": [_I] * 8 + [_P],  # backward b hw c groups dtype vec form, out
            "mmt_mha_backward_row_splits": [_I, _I, _I, _I]}
 
 # kernel name -> launches since the last reset_launch_counts()
@@ -139,7 +142,9 @@ def library() -> ctypes.CDLL:
 
 
 def current_stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of PyTorch's current stream on t's card (t a CUDA
+    tensor)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def launch(kernel: str, *args) -> None:

@@ -138,6 +138,24 @@ def test_every_attention_kernel_falls_in_a_profile_family():
     assert not [n for n in names if "bf16" in n] and "mma.sync" not in src
 
 
+def test_every_group_norm_kernel_falls_in_the_profile_family():
+    """Every __global__ kernel of csrc/group_norm.cu carries a tag of
+    ab_times.GROUP_NORM_TAGS, so the profiles' GroupNorm family holds every
+    GroupNorm launch: the cluster forms and the two streaming sweeps."""
+    import re
+
+    from minimagen_tpu_torch.ab_times import FAMILIES, GROUP_NORM_TAGS
+
+    src = open(os.path.join(kernels.CSRC_DIR, "group_norm.cu")).read()
+    names = [re.search(r"(\w+_kernel)\s*\(", src[i:src.index("{", i)]).group(1)
+             for i in (m.start() for m in re.finditer(r"__global__", src))]
+    assert set(names) == {"gn_fwd_cluster_kernel", "gn_fwd_stats_kernel", "gn_fwd_apply_kernel",
+                          "gn_bwd_cluster_kernel", "gn_bwd_partial_kernel", "gn_bwd_apply_kernel"}
+    for name in names:
+        assert [t for t in GROUP_NORM_TAGS if t in name], name
+        assert [f for f, tags in FAMILIES.items() if any(t in name for t in tags)] == ["group_norm"]
+
+
 def test_c_signatures_declare_pointer_width_arguments():
     for name, argtypes in kernels.SIGNATURES.items():
         assert argtypes[-1] is ctypes.c_void_p, f"{name}: the stream must be a pointer"
@@ -332,6 +350,7 @@ def test_autograd_functions_launch_backward_kernels_on_card(cuda):
     assert {n: kernels.LAUNCHES[n] for n in ("mqa_backward", "mha_backward", "group_norm_backward")} \
         == {"mqa_backward": 1, "mha_backward": 1, "group_norm_backward": 1}
     assert kernels.LAUNCHES["mha_forward"] == 1
+    assert kernels.LAUNCHES["group_norm_forward"] == 1
 
 
 @pytest.mark.cuda
@@ -428,3 +447,143 @@ def test_attention_above_65535_sample_heads_on_card(cuda, kind):
     for name, got, ref in zip(("out", "dq", "dk", "dv"), (out, *grads), refs):
         err = float((got.float() - ref.float()).abs().max())
         assert err <= _tol(torch.bfloat16, ref.float()), (name, err)
+
+
+# --------------------------------------------------------------------------- #
+# GroupNorm: the cluster and streaming forms (need the card)                  #
+# --------------------------------------------------------------------------- #
+# (shape, groups, forms to force): the path's widths on both sides of the form
+# rule (a slab of 2 MB per sample), 4 and 8 channels per group, Base's widest
+# rows (3584 float32 channels split into two slices), 3 channels per group
+# (vectors spanning groups unevenly), 8-byte and one-element vectors
+GN_FORM_CASES = [((4, 32, 32, 64), 8, ("cluster", "stream")),
+                 ((2, 64, 64, 32), 8, ("cluster", "stream")),
+                 ((2, 128, 128, 64), 8, ("stream",)),
+                 ((1, 96, 96, 128), 8, ("stream",)),
+                 ((2, 8, 8, 1536), 8, ("cluster", "stream")),
+                 ((2, 8, 8, 3584), 8, ("cluster", "stream")),
+                 ((3, 5, 7, 24), 8, ("cluster", "stream")),
+                 ((2, 9, 9, 20), 4, ("cluster", "stream")),
+                 ((2, 9, 9, 15), 5, ("cluster", "stream"))]
+GN_FORM_PARAMS = [(shape, groups, form) for shape, groups, forms in GN_FORM_CASES
+                  for form in (None, *forms)]
+
+
+def _gn_card_case(cuda, dtype, shape, seed=8):
+    x, gamma, beta, ss = _gn_inputs(*shape, seed=seed)
+    x, gamma, beta = (_t(a).to(cuda, dtype) for a in (x, gamma, beta))
+    scale, shift = (_t(s).to(cuda, dtype) for s in ss)
+    g = _t(np.random.default_rng(seed + 1).normal(size=shape).astype(np.float32)).to(cuda, dtype)
+    return x, gamma, beta, scale, shift, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,groups,form", GN_FORM_PARAMS)
+def test_group_norm_forms_match_plain_and_repeat_on_card(cuda, dtype, shape, groups, form):
+    """Each form of the forward and backward against the plain versions
+    (limits as above); the statistics against the exact two-pass ones
+    (cluster) or the tile model of group_stats_tiles_plain (streaming) at
+    float32 tolerance; and a repeat of both kernels gives the same bits (the
+    second backward reuses the ticket the first left at 0)."""
+    x, gamma, beta, scale, shift, g = _gn_card_case(cuda, dtype, shape)
+    kw = dict(groups=groups, silu=True, form=form)
+    info = tgn.plan_info(False, x, groups, form)
+    y, mean, rstd = tgn.group_norm_forward_kernel(x, gamma, beta, scale, shift, eps=1e-5, **kw)
+    y2, mean2, rstd2 = tgn.group_norm_forward_kernel(x, gamma, beta, scale, shift, eps=1e-5, **kw)
+    got = tgn.group_norm_backward_kernel(x, gamma, beta, scale, shift, mean, rstd, g, **kw)
+    again = tgn.group_norm_backward_kernel(x, gamma, beta, scale, shift, mean, rstd, g, **kw)
+    ref = tgn.group_norm_silu_plain(x, gamma, beta, groups=groups, scale_shift=(scale, shift),
+                                    silu=True)
+    want = tgn.group_norm_silu_bwd_plain(x, gamma, beta, scale, shift, mean, rstd, g,
+                                         groups=groups, silu=True)
+    if info["form"] == "stream":
+        stats = tgn.group_stats_tiles_plain(x, groups, info["tile_pixels"], info["tiles_per_part"])
+    else:
+        stats = tgn.group_stats_plain(x, groups)
+    torch.cuda.synchronize()
+    if form is not None:
+        assert info["form"] == form
+    assert float((y.float() - ref.float()).abs().max()) <= _tol(dtype, ref.float())
+    for name, a, r in zip(("mean", "rstd"), (mean, rstd), stats):
+        assert torch.allclose(a, r.float(), rtol=2e-5, atol=2e-5 * float(r.abs().max())), name
+    assert torch.equal(y, y2) and torch.equal(mean, mean2) and torch.equal(rstd, rstd2)
+    for name, a, r, b in zip(("dx", "dgamma", "dbeta", "dscale", "dshift"), got, want, again):
+        err = float((a.float() - r.float()).abs().max())
+        assert err <= _tol(dtype, r.float()), (name, err)
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_group_norm_cluster_form_refused_where_the_slab_does_not_fit_on_card(cuda):
+    """A 4 MB bf16 sample (the lite SR's 256x256x32) does not fit 16 blocks'
+    shared memory: asking for the cluster form raises, nothing falls back."""
+    x = torch.zeros(2, 256, 256, 32, dtype=torch.bfloat16, device=cuda)
+    assert tgn.plan_info(False, x, 8)["form"] == "stream"
+    with pytest.raises(ValueError):
+        tgn.plan_info(False, x, 8, "cluster")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", ["cluster", "stream"])
+def test_group_norm_reads_scale_shift_in_place_on_card(cuda, dtype, form):
+    """Scale and shift as the two halves of one (b, 1, 1, 2c) tensor (rows
+    2c apart, as the time MLP's output is split) give the same results as
+    contiguous copies, against the plain versions."""
+    b, h, w, c = 2, 16, 16, 64
+    x, gamma, beta, _, _, g = _gn_card_case(cuda, dtype, (b, h, w, c))
+    ss = _t(np.random.default_rng(4).normal(size=(b, 1, 1, 2 * c)).astype(np.float32) * 0.3)
+    ss = ss.to(cuda, dtype)
+    scale, shift = ss[..., :c], ss[..., c:]
+    assert scale.stride(0) == 2 * c and not scale.is_contiguous()
+    kw = dict(groups=8, silu=True, form=form)
+    y, mean, rstd = tgn.group_norm_forward_kernel(x, gamma, beta, scale, shift, eps=1e-5, **kw)
+    got = tgn.group_norm_backward_kernel(x, gamma, beta, scale, shift, mean, rstd, g, **kw)
+    ref = tgn.group_norm_silu_plain(x, gamma, beta, groups=8, scale_shift=(scale, shift), silu=True)
+    want = tgn.group_norm_silu_bwd_plain(x, gamma, beta, scale, shift, mean, rstd, g, groups=8,
+                                         silu=True)
+    copied = tgn.group_norm_forward_kernel(x, gamma, beta, scale.contiguous(),
+                                           shift.contiguous(), eps=1e-5, **kw)[0]
+    torch.cuda.synchronize()
+    assert float((y.float() - ref.float()).abs().max()) <= _tol(dtype, ref.float())
+    assert torch.equal(y, copied)
+    for name, a, r in zip(("dx", "dgamma", "dbeta", "dscale", "dshift"), got, want):
+        assert float((a.float() - r.float()).abs().max()) <= _tol(dtype, r.float()), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form,launches", [("cluster", 1), ("stream", 2)])
+def test_group_norm_launches_per_call_on_card(cuda, form, launches):
+    """The cluster form is one CUDA launch per forward and per backward, the
+    streaming form two (kernels counted in a torch.profiler trace)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x, gamma, beta, scale, shift, g = _gn_card_case(cuda, torch.bfloat16, (2, 32, 32, 64))
+    kw = dict(groups=8, silu=True, form=form)
+    _, mean, rstd = tgn.group_norm_forward_kernel(x, gamma, beta, scale, shift, eps=1e-5, **kw)
+    tgn.group_norm_backward_kernel(x, gamma, beta, scale, shift, mean, rstd, g, **kw)
+    torch.cuda.synchronize()
+    counts = {}
+    for name, call in (("forward", lambda: tgn.group_norm_forward_kernel(
+            x, gamma, beta, scale, shift, eps=1e-5, **kw)),
+            ("backward", lambda: tgn.group_norm_backward_kernel(
+                x, gamma, beta, scale, shift, mean, rstd, g, **kw))):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        counts[name] = sum(e.count for e in prof.key_averages()
+                           if e.device_type.name == "CUDA" and "gn_" in e.key)
+    assert counts == {"forward": launches, "backward": launches}
+
+
+@pytest.mark.parametrize("c,dtype,offset,want", [
+    (32, torch.bfloat16, 0, 16), (20, torch.bfloat16, 0, 8), (18, torch.bfloat16, 0, 4),
+    (15, torch.bfloat16, 0, 2), (64, torch.bfloat16, 1, 2), (64, torch.bfloat16, 4, 8),
+    (32, torch.float32, 0, 16), (10, torch.float32, 0, 8), (15, torch.float32, 0, 4),
+    (64, torch.float32, 2, 8)])
+def test_group_norm_vector_width_follows_rows_and_addresses(c, dtype, offset, want):
+    """The GroupNorm kernels take the widest vector (16, 8, 4 or 2 bytes)
+    dividing a row of c channels and every tensor's address."""
+    t = torch.zeros(4 * c + 16, dtype=dtype)[offset:offset + 2 * c]
+    assert tgn.vector_bytes(c, t.element_size(), t) == want
