@@ -24,8 +24,26 @@ Phases, one line each with elapsed seconds; any failure exits non-zero:
 5-7. the main path, with the launch counts reset just before it: the base
    stage (DDIM-50, cond_scale 3.0, the 8 eval captions of
    assets/lite_ckpt/eval/metrics.json), the cascade truncated at 0.2, and the
-   full-reverse cascade. Colour distances are held to 0.06 (committed rows:
-   base 0.0245, truncated 0.0189).
+   full-reverse cascade, all without encoder-feature caching
+   (``cache_interval=None``, as the committed rows were made). Colour
+   distances are held to 0.06 (committed rows: base 0.0245, truncated
+   0.0189).
+7a. solvers: the base stage at 10 steps as DDIM on the lambda grid, DPM++ on
+   the lambda grid and UniPC on the karras grid, each colour distance held
+   to 0.06 (committed 0.0312, 0.0266, 0.0277).
+7b. cache drift: the full-reverse DDIM-50 cascade with cache_interval 2 and
+   None from one seed, PSNR at least 30 dB (committed 38.51).
+7c. the fast recipe: DPM++ at (10, 50) steps, the super-res stage truncated
+   at 0.2, cache_interval 'auto' (each stage's decision printed with the cost
+   model's numbers); colour distance held to 0.06 (committed 0.018), s/image
+   beside the DDIM-50 full reverse of 7b.
+7d. cache bit identity: cache_interval 1 against None (and None against
+   None) on the card, equal bits.
+7e. a measurement, not a check: host ms per guided DDIM step of each stage
+   with cache_interval None and 2, in turns, three times over, with the
+   spread, beside the caching cost model's decision (repeated for the
+   default cascade in 17b, after which each stage's verdict and the
+   constants the runs imply are printed).
 8. a measurement, not a check: the host time of 5 guided DDIM steps per
    stage, and a torch.profiler trace of them for the device's busy time and
    its largest kernels, and the device ms per step of each kernel family
@@ -69,11 +87,18 @@ objects are freed:
    (reference convs, s2d-4 + kernel 8, s2d-2 + kernel 8), a measurement.
 16. reference: Base at 16px and Super at 32px (over a 16px low-res image),
    full width and depth, one caption guided, float32 on the card against a
-   CPU copy of the same weights.
+   CPU copy of the same weights; then 3-step DPM++ (lambda grid) and UniPC
+   (karras grid) cascades at 16/32px with cache_interval 2, guidance_rescale
+   0.7 and the super-res stage truncated at 0.2, draws injected from numpy,
+   each stage within 1e-3 relative L2.
 17. serve, with the launch counts reset just before it: 4 eval captions,
    cond_scale 3.0, DDIM-50 through both stages; images finite in [0, 1],
-   every forward kernel launched, peak memory; then the per-step profile of
-   each stage.
+   every forward kernel launched, peak memory.
+17a. serve the same captions with DPM++-10 and cache_interval 'auto', the
+   counts reset just before: finite images in [0, 1], every forward kernel
+   launched, s/image beside 17's.
+17b. the cache measurement of 7e for Base and Super; then the per-step
+   profile of each stage.
 18. train, with the launch counts reset just before it: 3 steps of both
    stages at batch 2 (train.py's default) with make_train_step: losses
    finite, parameters moved, the EMA within 2 float32 ulps of its
@@ -116,6 +141,24 @@ COMMITTED_LOSSES = ((0.6443, 1.1758), (0.1639, 0.7355))
 LEARN_LIMITS = (0.25, 1.10)
 SAMPLE_STEPS = 50
 COND_SCALE = 3.0
+# the base stage's solver rows of metrics.json (sampler, grid, committed
+# colour distance), 10 steps each, held to COLOR_LIMIT
+SOLVER_STEPS = 10
+SOLVER_ROWS = (("ddim", "lambda", 0.0312), ("dpmpp", "lambda", 0.0266), ("unipc", "karras", 0.0277))
+# the committed fast recipe (recipe/fast-dpmpp10+trunc0.2+cacheauto, colour 0.018)
+FAST_RECIPE = dict(sampler="dpmpp", sample_steps=(10, 50), sr_start_noise_levels=0.2,
+                   cache_interval="auto")
+# cache_interval=2 against None, DDIM-50 full reverse: PSNR in dB (committed
+# cache/2 row 38.51, bf16 on another device)
+CACHE_PSNR_LIMIT = 30.0
+# the default cascade's float32 solver check, card vs CPU at 16/32px: (sampler,
+# grid, steps per stage), the super-res steps chosen so that 3 survive the
+# truncation at 0.2
+REFERENCE_SOLVERS = (("dpmpp", "lambda", (3, 6)), ("unipc", "karras", (3, 10)))
+REFERENCE_SOLVER_KW = dict(cache_interval=2, guidance_rescale=0.7, sr_start_noise_levels=0.2)
+# guided DDIM steps per timed run, runs per setting, and repetitions of the
+# whole measurement (the host's pace shifts between blocks of runs)
+CACHE_TIMING_STEPS, CACHE_TIMING_RUNS, CACHE_TIMING_REPS = 4, 20, 3
 SEED = 0
 DEVICE = "cuda"
 
@@ -629,7 +672,7 @@ def run_main_path(imagen, captions):
         embeds, masks = imagen.encode_text(captions)
         init = torch.randn(len(captions), 64, 64, 3, generator=gen, device=DEVICE)
         base = imagen.sample_stage(0, embeds, masks, COND_SCALE, init_noise=init,
-                                   sampler="ddim", sample_steps=SAMPLE_STEPS)
+                                   sampler="ddim", sample_steps=SAMPLE_STEPS, cache_interval=None)
         arr = base.float().cpu().numpy()
         cd, gm = color_metric(arr, captions), grad_mean(arr)
         log(f"  base color_dist {cd:.4f} (limit {COLOR_LIMIT}, committed 0.0245) grad_mean {gm:.4f}")
@@ -638,7 +681,8 @@ def run_main_path(imagen, captions):
     snap("base")
     with phase("cascade truncated at 0.2"):
         out = imagen.sample(captions, cond_scale=COND_SCALE, sampler="ddim",
-                            sample_steps=SAMPLE_STEPS, sr_start_noise_levels=0.2, generator=gen)
+                            sample_steps=SAMPLE_STEPS, sr_start_noise_levels=0.2,
+                            cache_interval=None, generator=gen)
         arr = out.float().cpu().numpy()
         cd, gm = color_metric(arr, captions), grad_mean(arr)
         log(f"  trunc/sr0.2 color_dist {cd:.4f} (limit {COLOR_LIMIT}, committed 0.0189) "
@@ -648,7 +692,7 @@ def run_main_path(imagen, captions):
     snap("trunc")
     with phase("cascade full reverse"):
         out = imagen.sample(captions, cond_scale=COND_SCALE, sampler="ddim",
-                            sample_steps=SAMPLE_STEPS, generator=gen)
+                            sample_steps=SAMPLE_STEPS, cache_interval=None, generator=gen)
         arr = out.float().cpu().numpy()
         cd, gm = color_metric(arr, captions), grad_mean(arr)
         log(f"  fullrev shape {arr.shape} finite {bool(np.isfinite(arr).all())} "
@@ -657,6 +701,264 @@ def run_main_path(imagen, captions):
             raise PhaseError("full-reverse cascade output is not finite (8, 256, 256, 3)")
     snap("fullrev")
     return snapshots
+
+
+def require_launched(launches, what, names=tuple(KERNEL_INFO)):
+    """Fail the phase if a kernel of `names` never launched in `launches`."""
+    missing = [k for k in names if launches[k] == 0]
+    if missing:
+        raise PhaseError(f"{what}: kernels never launched: {missing}")
+
+
+def counted(fn):
+    """fn() with the launch counts set to 0 just before and read just after;
+    returns (its result, the launches, host seconds, synchronized)."""
+    from minimagen_tpu_torch.ops import kernels
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, dict(kernels.LAUNCHES), time.perf_counter() - t0
+
+
+def psnr_db(a, b):
+    """PSNR of [0, 1] images, as tools/flagship_quality_eval.py computes it."""
+    import numpy as np
+
+    mse = float(np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2))
+    return 99.0 if mse == 0 else 10.0 * np.log10(1.0 / mse)
+
+
+def log_cache_decisions(imagen, rows, text_len):
+    """Each stage's 'auto' decision at `rows` guided rows, with the cost
+    model's numbers."""
+    for stage in range(imagen.num_unets):
+        m = imagen.encoder_cache_cost_model(stage, rows, text_len)
+        log(f"  stage {stage} 'auto' at {rows} rows: cache_interval "
+            f"{2 if m['enable'] else None}; cache {m['cache_bytes'] / 2 ** 20:.2f} MiB, down-path "
+            f"FLOPs {m['down_flops_est']:.4g}, saved {m['saved_s_per_step'] * 1e3:.3f} ms/step "
+            f"against {m['cost_s_per_step'] * 1e3:.3f} ms")
+
+
+def solver_phase(imagen, captions):
+    """The base stage at SOLVER_STEPS steps through each solver row of
+    metrics.json, one initial image for all, no caching (as the rows were
+    made); colour distances held to COLOR_LIMIT. Returns the launches."""
+    import numpy as np
+    import torch
+    from minimagen_tpu_torch.quality import color_metric
+
+    embeds, masks = imagen.encode_text(captions)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+    init = torch.randn(len(captions), 64, 64, 3, generator=gen, device=DEVICE)
+
+    def run():
+        out = {}
+        for sampler, grid, _ in SOLVER_ROWS:
+            img = imagen.sample_stage(0, embeds, masks, COND_SCALE, init_noise=init,
+                                      sampler=sampler, sample_steps=SOLVER_STEPS, grid=grid,
+                                      cache_interval=None)
+            out[(sampler, grid)] = img.float().cpu().numpy()
+        return out
+
+    outs, launches, seconds = counted(run)
+    failures = []
+    for sampler, grid, committed in SOLVER_ROWS:
+        arr = outs[(sampler, grid)]
+        cd = color_metric(arr, captions)
+        log(f"  {sampler}-{SOLVER_STEPS}@{grid}: color_dist {cd:.4f} (limit {COLOR_LIMIT}, "
+            f"committed {committed})")
+        if not (np.isfinite(arr).all() and cd <= COLOR_LIMIT):
+            failures.append(f"{sampler}@{grid} color distance {cd:.4f}")
+    log(f"  {seconds:.2f} s for the three runs; launches {launches}")
+    if failures:
+        raise PhaseError("; ".join(failures))
+    require_launched(launches, "solver runs")
+    return launches
+
+
+def lite_cascade(imagen, captions, seed, **kw):
+    """One guided lite cascade from a fresh generator seeded `seed`: (images
+    on the card, launches, host seconds)."""
+    import torch
+
+    def run():
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        return imagen.sample(captions, cond_scale=COND_SCALE, generator=gen, **kw)
+
+    return counted(run)
+
+
+def cache_phases(imagen, captions):
+    """Caching on the lite cascade: DDIM-50 full reverse with
+    cache_interval 2 against None from one seed (PSNR held to
+    CACHE_PSNR_LIMIT); the fast recipe (colour held to COLOR_LIMIT, s/image
+    beside DDIM-50's); cache_interval 1 against None, and None against
+    None, equal bits. Returns {path: launches}."""
+    import numpy as np
+    import torch
+    from minimagen_tpu_torch.quality import color_metric, grad_mean
+
+    b = len(captions)
+    paths = {}
+    with phase("cache drift: DDIM-50 full reverse, cache_interval 2 vs None"):
+        exact, paths["lite DDIM-50 exact"], s_exact = lite_cascade(
+            imagen, captions, SEED + 6, sampler="ddim", sample_steps=SAMPLE_STEPS,
+            cache_interval=None)
+        cached, paths["lite DDIM-50 cache 2"], s_cached = lite_cascade(
+            imagen, captions, SEED + 6, sampler="ddim", sample_steps=SAMPLE_STEPS,
+            cache_interval=2)
+        exact, cached = (a.float().cpu().numpy() for a in (exact, cached))
+        db = psnr_db(cached, exact)
+        log(f"  PSNR cache 2 vs exact {db:.2f} dB (limit {CACHE_PSNR_LIMIT}, committed 38.51); "
+            f"color_dist exact {color_metric(exact, captions):.4f} cache 2 "
+            f"{color_metric(cached, captions):.4f}; s/image exact {s_exact / b:.4f} cache 2 "
+            f"{s_cached / b:.4f} (host clock, synchronized)")
+        if not (np.isfinite(cached).all() and db >= CACHE_PSNR_LIMIT):
+            raise PhaseError(f"cache_interval=2 drifts {db:.2f} dB from exact")
+        for name in ("lite DDIM-50 exact", "lite DDIM-50 cache 2"):
+            require_launched(paths[name], name)
+    with phase("fast recipe: DPM++ (10, 50), SR truncated at 0.2, cache_interval 'auto'"):
+        embeds, _ = imagen.encode_text(captions)
+        log_cache_decisions(imagen, 2 * b, embeds.shape[1])
+        out, paths["lite fast recipe"], s_fast = lite_cascade(imagen, captions, SEED + 7,
+                                                              **FAST_RECIPE)
+        arr = out.float().cpu().numpy()
+        cd, gm = color_metric(arr, captions), grad_mean(arr)
+        log(f"  color_dist {cd:.4f} (limit {COLOR_LIMIT}, committed 0.018) grad_mean {gm:.4f}; "
+            f"{s_fast / b:.4f} s/image against DDIM-50 full reverse {s_exact / b:.4f} "
+            f"(host clock, synchronized); launches {paths['lite fast recipe']}")
+        if not (np.isfinite(arr).all() and cd <= COLOR_LIMIT):
+            raise PhaseError("fast recipe color distance above the limit")
+        require_launched(paths["lite fast recipe"], "fast recipe")
+        # a measurement beside the check: the same recipe and seed without caching
+        exact_recipe, _, s_exact_recipe = lite_cascade(
+            imagen, captions, SEED + 7, **dict(FAST_RECIPE, cache_interval=None))
+        log(f"  the same without caching: color_dist "
+            f"{color_metric(exact_recipe.float().cpu().numpy(), captions):.4f}, "
+            f"{s_exact_recipe / b:.4f} s/image")
+    with phase("cache bit identity: cache_interval 1 vs None (and None vs None)"):
+        kw = dict(FAST_RECIPE, sample_steps=(SOLVER_STEPS, SAMPLE_STEPS))
+        runs = {}
+        for label, cache in (("none", None), ("one", 1), ("none again", None)):
+            runs[label], _, _ = lite_cascade(imagen, captions, SEED + 8,
+                                             **dict(kw, cache_interval=cache))
+        same_none = torch.equal(runs["none"], runs["none again"])
+        same_one = torch.equal(runs["one"], runs["none"])
+        log(f"  None twice equal: {same_none}; cache_interval 1 equal to None: {same_one}")
+        if not (same_none and same_one):
+            raise PhaseError("cache_interval=1 does not give the bits of no cache")
+    return paths
+
+
+def measure_cache_steps(imagen, captions, label, rep=0):
+    """A measurement, not a check: host ms per guided DDIM step of each
+    stage with cache_interval None and 2 (CACHE_TIMING_RUNS runs of
+    CACHE_TIMING_STEPS steps each, in turns N 2 2 N ...), synchronized. The
+    gain is the difference of the medians, the spread the distance between
+    the quartiles of the uncached runs; a stage got faster when the cached
+    run of a turn wins at least nine in ten turns and the gain exceeds the
+    spread. Prints the caching cost model's inputs and decision beside
+    them. Returns one row per stage."""
+    import torch
+    from minimagen_tpu_torch.models.unet import encoder_cache_shapes
+
+    embeds, masks = imagen.encode_text(captions)
+    b = len(captions)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
+    rows = []
+    for stage, size in enumerate(imagen.image_sizes):
+        kw = {}
+        if stage > 0:
+            kw = dict(lowres_cond_img=torch.rand(b, size, size, 3, generator=gen, device=DEVICE),
+                      lowres_noise_times=torch.full((b,), 200, device=DEVICE))
+        init = torch.randn(b, size, size, 3, generator=gen, device=DEVICE)
+
+        def run(cache):
+            t0 = time.perf_counter()
+            imagen.sample_stage(stage, embeds, masks, COND_SCALE, init_noise=init,
+                                sampler="ddim", sample_steps=CACHE_TIMING_STEPS,
+                                cache_interval=cache, **kw)
+            sync()
+            return (time.perf_counter() - t0) * 1e3 / CACHE_TIMING_STEPS
+
+        run(None), run(2)  # warm-up
+        times = {None: [], 2: []}
+        for i in range(CACHE_TIMING_RUNS):
+            for cache in ((None, 2) if i % 2 == 0 else (2, None)):
+                times[cache].append(run(cache))
+        med = {k: statistics.median(v) for k, v in times.items()}
+        q1, _, q3 = statistics.quantiles(times[None], n=4)
+        spread = q3 - q1
+        wins = sum(c < n for n, c in zip(times[None], times[2]))
+        model = imagen.encoder_cache_cost_model(stage, 2 * b, embeds.shape[1])
+        maps = len(encoder_cache_shapes(imagen.unet_configs[stage], 2 * b, size))
+        gain = med[None] - med[2]
+        row = dict(path=f"{label} stage {stage}", rep=rep, rows=2 * b, ms_none=times[None],
+                   ms_cache2=times[2],
+                   median_none=med[None], median_cache2=med[2], gain_ms=gain, spread_ms=spread,
+                   wins=wins, cached_maps=maps, down_flops_est=model["down_flops_est"],
+                   faster=gain > spread and wins >= 0.9 * CACHE_TIMING_RUNS,
+                   auto=model["enable"])
+        rows.append(row)
+        log(f"  {row['path']} rep {rep} ({2 * b} rows): ms/step None {med[None]:.3f} "
+            f"{[round(t, 3) for t in times[None]]}, cache 2 {med[2]:.3f} "
+            f"{[round(t, 3) for t in times[2]]}; gain {gain:.3f} ms, spread {spread:.3f} ms, "
+            f"cached faster in {wins}/{CACHE_TIMING_RUNS} turns: faster {row['faster']}; "
+            f"model: {maps} cached maps, "
+            f"down-path FLOPs {model['down_flops_est']:.4g}, saved "
+            f"{model['saved_s_per_step'] * 1e3:.3f} ms against {model['cost_s_per_step'] * 1e3:.3f}"
+            f" ms, 'auto' {'on' if row['auto'] else 'off'}")
+    return rows
+
+
+def fit_cache_constants(rows):
+    """The cost model's constants these measurements imply (Imagen's
+    _HOST_S_PER_CACHED_MAP, _DOWN_FLOPS_PER_S, _CACHE_MIN_SAVING_S), and
+    per stage the verdict over its repetitions: faster when the median gain
+    exceeds the median spread and the cached run won nine in ten turns. A
+    cached step at interval 2 saves, on average over two steps, half a
+    step's down path: the host s per cached map is the least-squares fit of
+    gain = 0.5 * maps * host_s over every measurement; the FLOP rate is the
+    largest 0.5 * FLOPs / gain (so the device term predicts no measurement a
+    larger saving than it showed); the least saving that counts is the
+    median spread of every measurement."""
+    gains = [r["gain_ms"] * 1e-3 for r in rows]
+    maps = [r["cached_maps"] for r in rows]
+    host = 2.0 * sum(g * m for g, m in zip(gains, maps)) / sum(m * m for m in maps)
+    rate = max(0.5 * r["down_flops_est"] / g for r, g in zip(rows, gains) if g > 0)
+    least = statistics.median(r["spread_ms"] for r in rows) * 1e-3
+    stages = {}
+    for r in rows:
+        stages.setdefault(r["path"], []).append(r)
+    verdicts = {}
+    for path, rs in stages.items():
+        gain = statistics.median(r["gain_ms"] for r in rs)
+        spread = statistics.median(r["spread_ms"] for r in rs)
+        wins = sum(r["wins"] for r in rs) / (CACHE_TIMING_RUNS * len(rs))
+        saved = 0.5 * max(rs[0]["down_flops_est"] / rate, rs[0]["cached_maps"] * host)
+        verdicts[path] = dict(gain_ms=gain, spread_ms=spread, wins=wins,
+                              faster=gain > spread and wins >= 0.9, predicted_ms=saved * 1e3,
+                              fitted_auto=saved > least, port_auto=rs[0]["auto"])
+    return dict(host_s_per_cached_map=host, down_flops_per_s=rate, cache_min_saving_s=least,
+                stages=verdicts)
+
+
+def log_cache_fit(rows, imagen):
+    fit = fit_cache_constants(rows)
+    log(f"  constants these runs imply: host s per cached map {fit['host_s_per_cached_map']:.4g}, "
+        f"down-path FLOP/s {fit['down_flops_per_s']:.4g}, least saving "
+        f"{fit['cache_min_saving_s']:.4g} s; in the port: {imagen._HOST_S_PER_CACHED_MAP}, "
+        f"{imagen._DOWN_FLOPS_PER_S}, {imagen._CACHE_MIN_SAVING_S}")
+    for path, v in fit["stages"].items():
+        log(f"  {path}: median gain {v['gain_ms']:.3f} ms, median spread {v['spread_ms']:.3f} ms, "
+            f"cached faster in {100 * v['wins']:.0f}% of turns: faster {v['faster']}; 'auto' "
+            f"{'on' if v['port_auto'] else 'off'} in the port "
+            f"({'agrees' if v['port_auto'] == v['faster'] else 'DISAGREES'}), "
+            f"{'on' if v['fitted_auto'] else 'off'} with these runs' constants (predicted saving "
+            f"{v['predicted_ms']:.3f} ms)")
+    return fit
 
 
 def profile_steps(imagen, captions, steps=5):
@@ -679,7 +981,7 @@ def profile_steps(imagen, captions, steps=5):
 
         def run():
             imagen.sample_stage(stage, embeds, masks, COND_SCALE, init_noise=init, sampler="ddim",
-                                sample_steps=steps, **kw)
+                                sample_steps=steps, cache_interval=None, **kw)
             torch.cuda.synchronize()
 
         run()  # warm-up
@@ -1220,6 +1522,59 @@ def default_reference(captions):
             f"(limit {REFERENCE_LIMIT}), finite {finite}")
         if not (finite and rel <= REFERENCE_LIMIT):
             raise PhaseError(f"default cascade stage {stage} disagrees with the CPU reference")
+    results.update(default_solver_reference(models, embeds, masks))
+    return results
+
+
+def resized_copy(imagen, device, sizes):
+    """A shallow copy of `imagen` that samples at `sizes` on `device` (its
+    U-Nets must already be there): the schedules are made anew there."""
+    import copy
+
+    import torch
+    from minimagen_tpu_torch.ops.diffusion import GaussianDiffusion
+
+    out = copy.copy(imagen)
+    out.device = torch.device(device)
+    out.image_sizes = tuple(sizes)
+    out.noise_schedulers = [GaussianDiffusion(s.num_timesteps, device)
+                            for s in imagen.noise_schedulers]
+    out.lowres_noise_schedule = GaussianDiffusion(imagen.lowres_noise_schedule.num_timesteps,
+                                                  device)
+    return out
+
+
+def default_solver_reference(models, embeds, masks):
+    """Short guided cascades of the default cascade at 16/32px, float32, on
+    the card and on the CPU, each REFERENCE_SOLVERS solver with
+    REFERENCE_SOLVER_KW (caching every 2nd step, the guidance rescale, the
+    super-res stage truncated), every draw injected from numpy: each stage's
+    output within REFERENCE_LIMIT relative L2."""
+    import numpy as np
+    import torch
+
+    b = embeds.shape[0]
+    rng = np.random.default_rng(SEED)
+    draws = [rng.normal(size=(b, s, s, 3)).astype(np.float32) for s in (16, 32, 32)]
+    results = {}
+    for sampler, grid, steps in REFERENCE_SOLVERS:
+        outs = {}
+        for dev, model in models.items():
+            it = iter(draws)
+            small = resized_copy(model, dev, (16, 32))
+            imgs = small.sample(text_embeds=embeds.to(dev), text_masks=masks.to(dev),
+                                cond_scale=COND_SCALE, sampler=sampler, sample_steps=steps,
+                                grid=grid, noise=lambda shape: torch.from_numpy(next(it)).to(dev),
+                                return_all_stage_outputs=True, **REFERENCE_SOLVER_KW)
+            outs[dev] = [im.float().cpu() for im in imgs]
+        for stage, (got, want) in enumerate(zip(outs[DEVICE], outs["cpu"])):
+            rel = float((got - want).norm() / want.norm())
+            finite = bool(torch.isfinite(got).all())
+            results[f"{sampler}_stage{stage}_rel_l2"] = rel
+            log(f"  {sampler}@{grid} steps {steps} {REFERENCE_SOLVER_KW}: stage {stage} relative "
+                f"L2 card f32 vs cpu f32 = {rel:.3e} (limit {REFERENCE_LIMIT}), finite {finite}")
+            if not (finite and rel <= REFERENCE_LIMIT):
+                raise PhaseError(f"default cascade {sampler} stage {stage} disagrees with the CPU")
     return results
 
 
@@ -1235,7 +1590,7 @@ def serve(imagen, captions):
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     out = imagen.sample(captions, cond_scale=COND_SCALE, sampler="ddim",
-                        sample_steps=SAMPLE_STEPS, generator=gen)
+                        sample_steps=SAMPLE_STEPS, cache_interval=None, generator=gen)
     sync()
     seconds = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
@@ -1257,6 +1612,32 @@ def serve(imagen, captions):
     if failures:
         raise PhaseError("; ".join(failures))
     return launches, dict(seconds=seconds, peak_gib=peak)
+
+
+def serve_fast(imagen, captions, ddim_seconds):
+    """DPM++-10 through both stages with cache_interval 'auto', the launch
+    counts reset just before: images finite in [0, 1], every forward kernel
+    launched, s/image beside DDIM-50's. Returns the launches."""
+    import numpy as np
+    import torch
+
+    embeds, _ = imagen.encode_text(captions)
+    log_cache_decisions(imagen, 2 * len(captions), embeds.shape[1])
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    out, launches, seconds = counted(lambda: imagen.sample(
+        captions, cond_scale=COND_SCALE, sampler="dpmpp", sample_steps=SOLVER_STEPS,
+        cache_interval="auto", generator=gen))
+    arr = out.float().cpu().numpy()
+    n = len(captions)
+    log(f"  images {arr.shape} min {arr.min():.4f} max {arr.max():.4f} mean {arr.mean():.4f}; "
+        f"{seconds / n:.3f} s/image against DDIM-{SAMPLE_STEPS} {ddim_seconds / n:.3f} "
+        f"(host clock, synchronized)")
+    log(f"  launches: {launches}")
+    if arr.shape != (n, 128, 128, 3) or not np.isfinite(arr).all() \
+            or not (arr.min() >= 0.0 and arr.max() <= 1.0):
+        raise PhaseError(f"images {arr.shape} not finite in [0, 1]")
+    require_launched(launches, "default DPM++ serving")
+    return launches
 
 
 def train_default(imagen, batch, train_shapes):
@@ -1420,6 +1801,14 @@ def main():
         log(f"kernels never launched on the main path: {missing}")
         return 1
 
+    with phase(f"solvers: the base stage at {SOLVER_STEPS} steps, DDIM@lambda, DPM++@lambda, "
+               "UniPC@karras"):
+        solver_launches = solver_phase(imagen, captions)
+    lever_paths = cache_phases(imagen, captions)
+    with phase("measure: guided step ms per lite stage, cache_interval None vs 2"):
+        cache_rows = [row for rep in range(CACHE_TIMING_REPS)
+                      for row in measure_cache_steps(imagen, captions, "lite", rep)]
+
     # a measurement, not a check: a profiler that cannot trace the card
     # leaves the device numbers "not measured"; a failing launch still fails
     with phase("measure: profile guided DDIM steps of each stage"):
@@ -1480,7 +1869,15 @@ def main():
         default_reference(default_captions[:1])
     with phase(f"serve the default cascade: {DEFAULT_CAPTIONS} captions, DDIM-{SAMPLE_STEPS}, "
                f"cond_scale {COND_SCALE}, 64 -> 128"):
-        serve_launches, _ = serve(big, default_captions)
+        serve_launches, serve_stats = serve(big, default_captions)
+    with phase(f"serve the default cascade: {DEFAULT_CAPTIONS} captions, DPM++-{SOLVER_STEPS}, "
+               "cache_interval 'auto'"):
+        fast_serve_launches = serve_fast(big, default_captions, serve_stats["seconds"])
+    with phase("measure: guided step ms per default stage, cache_interval None vs 2"):
+        cache_rows += [row for rep in range(CACHE_TIMING_REPS)
+                       for row in measure_cache_steps(big, default_captions, "default", rep)]
+        log_cache_fit(cache_rows, big)
+        log("  cache measurement rows: " + json.dumps(cache_rows))
     with phase("measure: profile guided DDIM steps of the default cascade"):
         profile_steps(big, default_captions)
     with phase(f"train the default cascade: {DEFAULT_TRAIN_STEPS} steps, batch "
@@ -1488,8 +1885,9 @@ def main():
         big_train_launches, _ = train_default(big, big_batch, big_training)
     del big
 
-    runs = {"lite sampling": launches, "lite learning": train_launches,
-            "default serving": serve_launches, "default training": big_train_launches}
+    runs = {"lite sampling": launches, "lite solvers": solver_launches, **lever_paths,
+            "lite learning": train_launches, "default serving": serve_launches,
+            "default DPM++ serving": fast_serve_launches, "default training": big_train_launches}
     for name, counts in runs.items():
         log(f"launches, {name}: {counts}")
     totals = {k: sum(counts[k] for counts in runs.values()) for k in launches}

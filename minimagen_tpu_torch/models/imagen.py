@@ -3,16 +3,20 @@
 
 N U-Nets, each with its own diffusion schedule, plus a low-res augmentation
 schedule. Sampling runs classifier-free guidance as ONE pair-batched forward
-(rows [0:b] conditioned, [b:2b] null), recovers x0 and clamps it by dynamic
-thresholding (per-image quantile 0.9 of |x0|, at least 1), and steps with
-DDPM or DDIM. A super-resolution stage conditions on the previous stage's
+(rows [0:b] conditioned, [b:2b] null), optionally with the guidance rescale
+of arXiv 2305.08891 (``guidance_rescale``), recovers x0 and clamps it by
+dynamic thresholding (per-image quantile 0.9 of |x0|, at least 1), and steps
+with DDPM, DDIM, DPM-Solver++(2M) or UniPC-2 on the ``time``, ``lambda`` or
+``karras`` grid. A super-resolution stage conditions on the previous stage's
 output, resized and noise-augmented at a fixed level in [0, 1] space (the
 reference's order), and may start from that output noised to
 ``sr_start_noise_levels`` instead of pure noise (truncated refinement).
 
-Encoder-feature caching is off (the JAX default ``'auto'`` is a cost model
-fitted on a TPU) and ``guidance_rescale`` is 0. DPM-Solver++, UniPC and the
-``lambda``/``karras`` grids are not ported yet.
+Encoder-feature caching (``cache_interval``): every N-th step runs the whole
+U-Net and keeps its stem + down-path features; the steps between reuse them
+and run only the middle and up paths. ``'auto'`` (the default of ``sample``
+and ``super_resolve``) asks :meth:`Imagen.encoder_cache_cost_model`, whose
+constants were fitted to guided step times on an H100.
 
 Training: :meth:`Imagen.stage_loss` is the JAX package's ``stage_loss_fn``
 (resize the [0, 1] images to the stage's size; for a super-resolution stage
@@ -25,12 +29,13 @@ loss, optional min-SNR weighting and offset noise). Its draws come from a
 noise, the offset noise (when enabled), the augmentation noise, the keep
 mask; each can be injected instead.
 
-Randomness: every draw goes through ``noise(shape)``, by default
+Randomness of sampling: every draw goes through ``noise(shape)``, by default
 ``torch.randn`` from the caller's generator. The draws come in this order:
 per stage, the augmentation noise of the low-res image (super-res stages),
 then the stage's initial image (pure noise, or the truncated start), then
-one draw per step for DDPM. Passing ``noise`` injects them, which is how the
-tests hold a run against the JAX package.
+one draw per step for DDPM. DDIM, DPM-Solver++ and UniPC draw nothing per
+step. Passing ``noise`` injects them, which is how the tests hold a run
+against the JAX package.
 """
 from __future__ import annotations
 
@@ -50,8 +55,9 @@ from ..ops.helpers import (
     unnormalize_zero_to_one,
 )
 from ..ops.resize import resize_image_to
+from ..utils.progress import ProgressBar
 from .t5 import MAX_LENGTH, TextEncoder, get_encoded_dim
-from .unet import UnetConfig, UnetModel
+from .unet import EncoderCache, UnetConfig, UnetModel, encoder_cache_shapes
 
 NoiseFn = Callable[[Sequence[int]], torch.Tensor]
 LossFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -84,6 +90,34 @@ def _per_sample_loss_fn(loss_type: str) -> LossFn:
 # rows of at least this many elements take the bisection quantile (the JAX
 # package's default threshold, imagen.py:407-421)
 APPROX_QUANTILE_MIN = 2 ** 17
+SAMPLERS = ("ddpm", "ddim", "dpmpp", "unipc")
+STRIDED_SAMPLERS = ("ddim", "dpmpp", "unipc")
+
+
+def guided_combine(logits: torch.Tensor, null_logits: torch.Tensor, cond_scale: float,
+                   guidance_rescale: float = 0.0) -> torch.Tensor:
+    """null + (cond - null) * cond_scale; with `guidance_rescale` phi > 0,
+    blended with that prediction rescaled to the conditional prediction's
+    per-sample (population) std: phi * rescaled + (1 - phi) * guided
+    (arXiv 2305.08891, section 3.4). phi = 0 runs only the first line."""
+    guided = null_logits + (logits - null_logits) * cond_scale
+    if guidance_rescale > 0.0:
+        dims = tuple(range(1, guided.ndim))
+        std_pos = torch.std(logits, dim=dims, keepdim=True, correction=0)
+        std_cfg = torch.std(guided, dim=dims, keepdim=True, correction=0)
+        rescaled = guided * (std_pos / std_cfg.clamp(min=1e-8))
+        guided = guidance_rescale * rescaled + (1.0 - guidance_rescale) * guided
+    return guided
+
+
+def _to_pil(arr: np.ndarray):
+    """[0, 1] float HWC image -> PIL.Image (PIL is imported only here)."""
+    from PIL import Image  # noqa: PLC0415
+
+    arr = (np.clip(arr, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+    if arr.shape[-1] == 1:
+        arr = arr[..., 0]
+    return Image.fromarray(arr)
 
 
 class Imagen:
@@ -165,27 +199,58 @@ class Imagen:
     # guided forward and x0 prediction                                    #
     # ------------------------------------------------------------------ #
     def _cfg_forward(self, stage, x, t, *, text_embeds, text_mask, lowres_cond_img,
-                     lowres_noise_times, cond_scale):
-        """One pair-batched forward; returns null + (cond - null) * cond_scale."""
+                     lowres_noise_times, cond_scale, guidance_rescale: float = 0.0,
+                     encoder_cache: Optional[EncoderCache] = None,
+                     return_encoder_cache: bool = False):
+        """One pair-batched forward; returns :func:`guided_combine` of its
+        halves (and the cache when asked). An `encoder_cache` came from this
+        function, so it is pair-batched already and goes in as it is."""
         b = x.shape[0]
         dup = lambda a: None if a is None else torch.cat([a, a], dim=0)  # noqa: E731
         keep = torch.cat([torch.ones(b, dtype=torch.bool, device=x.device),
                           torch.zeros(b, dtype=torch.bool, device=x.device)])
         out = self.unets[stage](dup(x), dup(t), text_embeds=dup(text_embeds),
                                 text_mask=dup(text_mask), lowres_cond_img=dup(lowres_cond_img),
-                                lowres_noise_times=dup(lowres_noise_times), text_keep_mask=keep)
-        logits, null_logits = out[:b], out[b:]
-        return null_logits + (logits - null_logits) * cond_scale
+                                lowres_noise_times=dup(lowres_noise_times), text_keep_mask=keep,
+                                encoder_cache=encoder_cache,
+                                return_encoder_cache=return_encoder_cache)
+        cache = None
+        if return_encoder_cache:
+            out, cache = out
+        guided = guided_combine(out[:b], out[b:], cond_scale, guidance_rescale)
+        return (guided, cache) if return_encoder_cache else guided
+
+    def forward_with_cond_scale(self, x, time, *, unet_number: int = 1, cond_scale: float = 1.0,
+                                guidance_rescale: float = 0.0, **conditioning):
+        """Guided forward of U-Net `unet_number` (1-based): one pair-batched
+        forward where the reference runs two. `conditioning` takes
+        text_embeds, text_mask, lowres_cond_img and lowres_noise_times."""
+        stage = unet_number - 1
+        kw = {k: conditioning.get(k) for k in
+              ("text_embeds", "text_mask", "lowres_cond_img", "lowres_noise_times")}
+        if cond_scale == 1.0:
+            return self.unets[stage](x, time, **kw)
+        return self._cfg_forward(stage, x, time, cond_scale=cond_scale,
+                                 guidance_rescale=guidance_rescale, **kw)
 
     def _predict_x_start(self, stage, x, t, *, text_embeds, text_mask, lowres_cond_img,
-                         lowres_noise_times, cond_scale, guided: bool):
-        """Predicted noise -> x0, dynamically thresholded."""
+                         lowres_noise_times, cond_scale, guided: bool,
+                         guidance_rescale: float = 0.0,
+                         encoder_cache: Optional[EncoderCache] = None,
+                         return_encoder_cache: bool = False):
+        """Predicted noise -> x0, dynamically thresholded (and the encoder
+        cache when asked)."""
         kw = dict(text_embeds=text_embeds, text_mask=text_mask,
-                  lowres_cond_img=lowres_cond_img, lowres_noise_times=lowres_noise_times)
+                  lowres_cond_img=lowres_cond_img, lowres_noise_times=lowres_noise_times,
+                  encoder_cache=encoder_cache, return_encoder_cache=return_encoder_cache)
         if guided:
-            pred = self._cfg_forward(stage, x, t, cond_scale=cond_scale, **kw)
+            pred = self._cfg_forward(stage, x, t, cond_scale=cond_scale,
+                                     guidance_rescale=guidance_rescale, **kw)
         else:
             pred = self.unets[stage](x, t, **kw)
+        cache = None
+        if return_encoder_cache:
+            pred, cache = pred
         x_start = self.noise_schedulers[stage].predict_start_from_noise(x, t=t, noise=pred)
         b = x_start.shape[0]
         flat = x_start.reshape(b, -1).abs().float()
@@ -194,7 +259,8 @@ class Imagen:
         else:
             s = torch.quantile(flat, self.dynamic_thresholding_percentile, dim=-1)
         s = right_pad_dims_to(x_start, s.clamp(min=1.0)).to(x_start.dtype)
-        return torch.maximum(torch.minimum(x_start, s), -s) / s
+        x_start = torch.maximum(torch.minimum(x_start, s), -s) / s
+        return (x_start, cache) if return_encoder_cache else x_start
 
     def _p_mean_variance(self, stage, x, t, **kw):
         """Posterior (mean, variance, log-variance) from the thresholded x0."""
@@ -214,57 +280,121 @@ class Imagen:
     def sample_stage(self, stage: int, text_embeds, text_mask, cond_scale: float, *,
                      init_noise: torch.Tensor, lowres_cond_img=None, lowres_noise_times=None,
                      sampler: str = "ddim", sample_steps: Optional[int] = None,
-                     start_at: Optional[int] = None, noise: Optional[NoiseFn] = None,
+                     start_at: Optional[int] = None, grid: str = "time",
+                     cache_interval: Optional[int] = None, guidance_rescale: float = 0.0,
+                     progress: bool = False, noise: Optional[NoiseFn] = None,
                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """One stage's reverse process from `init_noise`; returns [0, 1]
         images. `lowres_cond_img` is the already-noised [0, 1] conditioning
-        image; `start_at` truncates to timesteps <= it."""
-        if sampler not in ("ddpm", "ddim"):
-            raise NotImplementedError(f"sampler {sampler!r} is not ported yet")
+        image; `start_at` truncates to timesteps <= it.
+
+        :param sampler: 'ddpm' (all T steps), 'ddim', 'dpmpp'
+            (DPM-Solver++(2M)) or 'unipc' (UniPC-2 'bh2': the DPM++ predictor
+            after a corrector that reuses each model call), the last three
+            over `sample_steps` pairs of the `grid` ('time', 'lambda' or
+            'karras'; duplicate timesteps collapse, so there may be fewer).
+        :param cache_interval: recompute the U-Net's stem + down path every
+            N-th step and reuse it in between; None or 0 is off, 1 gives the
+            same bits as off.
+        :param guidance_rescale: phi of :func:`guided_combine`.
+        :param progress: a progress bar ticking once per U-Net call.
+        """
+        if sampler not in SAMPLERS:
+            raise ValueError(f"unknown sampler {sampler!r}")
+        if not (cache_interval is None or isinstance(cache_interval, int)):
+            raise ValueError(f"cache_interval {cache_interval!r}: 'auto' is resolved by "
+                             "sample and super_resolve")
         scheduler = self.noise_schedulers[stage]
         b = text_embeds.shape[0]
         lowres = (self.normalize_img(lowres_cond_img)
                   if self.unet_configs[stage].lowres_cond else None)
         kw = dict(text_embeds=text_embeds, text_mask=text_mask, lowres_cond_img=lowres,
                   lowres_noise_times=lowres_noise_times, cond_scale=cond_scale,
-                  guided=cond_scale != 1.0)
+                  guided=cond_scale != 1.0, guidance_rescale=guidance_rescale)
         full = lambda v: torch.full((b,), int(v), dtype=torch.int64, device=self.device)  # noqa: E731
         img = init_noise.to(self.device, torch.float32)
         if sampler == "ddpm":
-            draw = self._noise_fn(noise, generator)
             times = np.arange(scheduler.num_timesteps - 1, -1, -1)
             if start_at is not None:
                 times = times[times <= start_at]
-            for t_scalar in times:
-                mean, _, log_var = self._p_mean_variance(stage, img, full(t_scalar), **kw)
-                step_noise = draw(img.shape)
-                img = mean + (1.0 if t_scalar > 0 else 0.0) * torch.exp(0.5 * log_var) * step_noise
         else:
             steps = default(sample_steps, min(50, scheduler.num_timesteps))
-            pairs = scheduler.strided_sampling_timesteps(steps)
-            if start_at is not None:
+            pairs = scheduler.strided_sampling_timesteps(steps, grid)
+            if start_at is not None:  # before the coefficients: r_i links surviving rows
                 pairs = pairs[pairs[:, 0] <= start_at]
-            for t_scalar, tp_scalar in pairs:
-                t = full(t_scalar)
-                x0 = self._predict_x_start(stage, img, t, **kw)
-                img = scheduler.ddim_step(img, x0, t, full(tp_scalar))
+        n_calls = len(times) if sampler == "ddpm" else len(pairs)
+        bar = (ProgressBar(total=n_calls, desc=f"sampling stage {stage + 1}/{self.num_unets}")
+               if progress else None)
+        cache: Optional[EncoderCache] = None
+
+        def predict(img, t_scalar, idx):
+            """The thresholded x0 at `t_scalar`, the down path recomputed
+            or reused as `cache_interval` says."""
+            nonlocal cache
+            t = full(t_scalar)
+            if bar is not None:
+                bar.update(1)
+            if not cache_interval:
+                return self._predict_x_start(stage, img, t, **kw)
+            if idx % cache_interval == 0:
+                x0, cache = self._predict_x_start(stage, img, t, return_encoder_cache=True, **kw)
+                return x0
+            return self._predict_x_start(stage, img, t, encoder_cache=cache, **kw)
+
+        try:
+            if sampler == "ddpm":
+                draw = self._noise_fn(noise, generator)
+                for idx, t_scalar in enumerate(times):
+                    x0 = predict(img, t_scalar, idx)
+                    mean, _, log_var = scheduler.q_posterior(x_start=x0, x_t=img, t=full(t_scalar))
+                    step_noise = draw(img.shape)
+                    img = mean + (1.0 if t_scalar > 0 else 0.0) * torch.exp(0.5 * log_var) \
+                        * step_noise
+            elif sampler == "ddim":
+                for idx, (t_scalar, tp_scalar) in enumerate(pairs):
+                    x0 = predict(img, t_scalar, idx)
+                    img = scheduler.ddim_step(img, x0, full(t_scalar), full(tp_scalar))
+            elif sampler == "dpmpp":
+                # float32 coefficients, as the JAX package's scan takes them
+                coefs = scheduler.dpmpp_2m_coefficients(pairs).tolist()
+                x0_prev = torch.zeros_like(img)  # c2 = 0 on step 0
+                for idx, ((t_scalar, _), c) in enumerate(zip(pairs, coefs)):
+                    x0 = predict(img, t_scalar, idx)
+                    d = c[2] * x0 + c[3] * x0_prev
+                    img = c[0] * img + c[1] * d
+                    x0_prev = x0
+            else:  # unipc: correct the transition that landed here, then predict
+                pcoefs = scheduler.dpmpp_2m_coefficients(pairs).tolist()
+                ccoefs = scheduler.unipc_c_coefficients(pairs).tolist()
+                x_s0 = m0 = m1 = torch.zeros_like(img)  # rows 0 and 1 ignore them
+                for idx, ((t_scalar, _), pc, cc) in enumerate(zip(pairs, pcoefs, ccoefs)):
+                    m_t = predict(img, t_scalar, idx)
+                    x_c = (cc[0] * img + cc[1] * x_s0 + cc[2] * m0
+                           + cc[3] * (m1 - m0) + cc[4] * (m_t - m0))
+                    d = pc[2] * m_t + pc[3] * m0
+                    img = pc[0] * x_c + pc[1] * d
+                    x_s0, m1, m0 = x_c, m0, m_t
+        finally:
+            if bar is not None:
+                bar.close()
         return self.unnormalize_img(img.clamp(-1.0, 1.0))
 
     def _truncation_start(self, stage: int, start_noise_level: float, sampler: str,
-                          sample_steps: Optional[int]) -> int:
+                          sample_steps: Optional[int], grid: str = "time") -> int:
         """A truncation level in (0, 1] -> start timestep, clamped onto the
-        DDIM grid so the init image is noised at the first t processed."""
+        strided samplers' `grid` so the init image is noised at the first t
+        processed."""
         if not 0.0 < start_noise_level <= 1.0:
             raise ValueError("start_noise_level must be in (0, 1]")
         scheduler = self.noise_schedulers[stage]
         start_at = min(int(start_noise_level * scheduler.num_timesteps),
                        scheduler.num_timesteps - 1)
-        if sampler == "ddim":
+        if sampler in STRIDED_SAMPLERS:
             steps = default(sample_steps, min(50, scheduler.num_timesteps))
-            grid = scheduler.strided_sampling_timesteps(steps)[:, 0]
-            on_grid = grid[grid <= start_at]
+            ts = scheduler.strided_sampling_timesteps(steps, grid)[:, 0]
+            on_grid = ts[ts <= start_at]
             if not on_grid.size:
-                raise ValueError("start_noise_level is below the DDIM grid's smallest timestep")
+                raise ValueError("start_noise_level is below the grid's smallest timestep")
             start_at = int(on_grid.max())
         return start_at
 
@@ -298,10 +428,60 @@ class Imagen:
             text_masks = torch.as_tensor(text_masks, dtype=torch.bool, device=self.device)
         return text_embeds, text_masks
 
+    # ------------------------------------------------------------------ #
+    # encoder-feature caching: the 'auto' decision                        #
+    # ------------------------------------------------------------------ #
+    # H100 constants (NVIDIA H100 80GB HBM3, 700 W), fitted to host ms per
+    # guided sampling step with cache_interval None and 2 at the lite (16
+    # rows) and default (8 rows) cascades' stages, three repetitions of 20
+    # turns each (chip_smoke.py's measure_cache_steps and
+    # fit_cache_constants; PERF.md section 6). The eager port moves
+    # no bytes to reuse a cache (it keeps references), so a cached step
+    # saves the down path's host dispatch or, where the card sets the pace,
+    # its device time, whichever is the larger; the saving must clear the
+    # spread of a step's host time. The fit turns caching on for Base and
+    # Super and off for both lite stages, whose savings (~3 ms of ~20) do
+    # not clear that spread.
+    _HOST_S_PER_CACHED_MAP = 4.83e-4  # host dispatch per cached map (one block)
+    _DOWN_FLOPS_PER_S = 2.09e14  # the down path's convolutions, bf16
+    _CACHE_MIN_SAVING_S = 3.79e-3  # the median spread of a guided step's host time
+
+    def encoder_cache_cost_model(self, stage: int, batch_size: int, text_len: int = 64,
+                                 interval: int = 2) -> dict:
+        """Whether caching every `interval`-th step pays at `batch_size` rows
+        (pair-batched rows when guided). The cache shapes come from the
+        config alone (:func:`encoder_cache_shapes`): ``cache_bytes`` is
+        exact, ``down_flops_est`` counts two 3x3 C->C convs per cached map,
+        as the JAX package's model does; the decision depends on shapes and
+        the constants above only, never on the device at hand. `text_len`
+        shapes no cached tensor."""
+        shapes = encoder_cache_shapes(self.unet_configs[stage], batch_size,
+                                      self.image_sizes[stage])
+        itemsize = torch.empty((), dtype=self.dtype).element_size()
+        cache_bytes = sum(int(np.prod(s)) * itemsize for s in shapes)
+        down_flops = sum(4.0 * 9.0 * s[1] * s[2] * (s[3] ** 2) * s[0] for s in shapes)
+        saved_s = (1.0 - 1.0 / interval) * max(down_flops / self._DOWN_FLOPS_PER_S,
+                                               len(shapes) * self._HOST_S_PER_CACHED_MAP)
+        cost_s = self._CACHE_MIN_SAVING_S
+        return dict(cache_bytes=cache_bytes, down_flops_est=down_flops, saved_s_per_step=saved_s,
+                    cost_s_per_step=cost_s, enable=saved_s > cost_s)
+
+    def _resolve_cache_interval(self, cache_interval, stage: int, batch_size: int,
+                                text_len: int) -> Optional[int]:
+        """'auto' -> 2 where the cost model says caching pays, else None;
+        an int or None passes through."""
+        if cache_interval != "auto":
+            return cache_interval
+        return 2 if self.encoder_cache_cost_model(stage, batch_size, text_len)["enable"] else None
+
     @torch.inference_mode()
     def sample(self, texts: Optional[List[str]] = None, text_masks=None, text_embeds=None,
-               cond_scale: float = 1.0, lowres_sample_noise_level: Optional[float] = None, *,
+               cond_scale: float = 1.0, lowres_sample_noise_level: Optional[float] = None,
+               return_pil_images: bool = False, *,
                sampler: str = "ddpm", sample_steps: Union[int, Sequence[int], None] = None,
+               grid: str = "time", cache_interval: Union[int, str, None] = "auto",
+               guidance_rescale: float = 0.0, data_format: str = "NHWC",
+               progress: bool = False,
                sr_start_noise_levels: Union[float, Sequence[Optional[float]], None] = None,
                return_all_stage_outputs: bool = False,
                generator: Optional[torch.Generator] = None,
@@ -309,17 +489,28 @@ class Imagen:
         """Generate (b, s, s, c) NHWC images in [0, 1] for captions (or
         precomputed T5 encodings) through every stage of the cascade.
 
-        :param sample_steps: DDIM steps (default min(50, T)), or one per stage.
+        :param sampler: 'ddpm', 'ddim', 'dpmpp' or 'unipc' (:meth:`sample_stage`).
+        :param sample_steps: strided steps (default min(50, T)), or one per stage.
+        :param grid: 'time', 'lambda' or 'karras' spacing of the strided samplers.
+        :param cache_interval: encoder-feature caching per stage: an int
+            (None or 0 off), or 'auto' (2 where the cost model says it pays).
+        :param guidance_rescale: phi of :func:`guided_combine` (0 = plain CFG).
+        :param data_format: 'NHWC' or 'NCHW' for the returned tensors.
+        :param return_pil_images: PIL images of the last stage (needs PIL).
+        :param progress: a progress bar per stage, one tick per U-Net call.
         :param sr_start_noise_levels: truncated refinement level in (0, 1]
             for the super-res stages (or one per stage, None = full reverse).
         :param noise: optional ``noise(shape)`` replacing every random draw
             (order in the module docstring); else ``generator`` is used.
         """
+        if data_format not in ("NHWC", "NCHW"):
+            raise ValueError(f"unknown data_format {data_format!r}")
         text_embeds, text_masks = self._text_inputs(texts, text_embeds, text_masks)
         if cond_scale != 1.0 and not self.can_classifier_guidance:
             raise ValueError("classifier-free guidance needs a model trained with cond_drop_prob > 0")
         draw = self._noise_fn(noise, generator)
         b = text_embeds.shape[0]
+        rows = b * (2 if cond_scale != 1.0 else 1)
         noise_level = default(lowres_sample_noise_level, self.lowres_sample_noise_level)
         per_stage = lambda v, i: v[i] if isinstance(v, (list, tuple)) else v  # noqa: E731
         img, outputs = None, []
@@ -331,23 +522,31 @@ class Imagen:
                 lowres, lowres_times = self._lowres_condition(stage, img, noise_level, draw)
                 sr_level = per_stage(sr_start_noise_levels, stage)
                 if sr_level is not None:
-                    start_at = self._truncation_start(stage, sr_level, sampler, steps)
+                    start_at = self._truncation_start(stage, sr_level, sampler, steps, grid)
             shape = (b, size, size, self.channels)
             init = (draw(shape) if start_at is None
                     else self._truncation_init(stage, img, start_at, draw(shape)))
-            img = self.sample_stage(stage, text_embeds, text_masks, cond_scale, init_noise=init,
-                                    lowres_cond_img=lowres, lowres_noise_times=lowres_times,
-                                    sampler=sampler, sample_steps=steps, start_at=start_at,
-                                    noise=draw)
+            img = self.sample_stage(
+                stage, text_embeds, text_masks, cond_scale, init_noise=init,
+                lowres_cond_img=lowres, lowres_noise_times=lowres_times, sampler=sampler,
+                sample_steps=steps, start_at=start_at, grid=grid,
+                cache_interval=self._resolve_cache_interval(cache_interval, stage, rows,
+                                                            text_embeds.shape[1]),
+                guidance_rescale=guidance_rescale, progress=progress, noise=draw)
             outputs.append(img)
-        return outputs if return_all_stage_outputs else img
+        if return_pil_images:
+            return [_to_pil(im) for im in img.float().cpu().numpy()]
+        if data_format == "NCHW":
+            outputs = [o.permute(0, 3, 1, 2) for o in outputs]
+        return outputs if return_all_stage_outputs else outputs[-1]
 
     @torch.inference_mode()
     def super_resolve(self, images, *, stage: int = 1, texts: Optional[List[str]] = None,
                       text_embeds=None, text_masks=None, cond_scale: float = 1.0,
                       lowres_sample_noise_level: Optional[float] = None,
                       sampler: str = "ddim", sample_steps: Optional[int] = None,
-                      start_noise_level: Optional[float] = None,
+                      grid: str = "time", cache_interval: Union[int, str, None] = "auto",
+                      start_noise_level: Optional[float] = None, guidance_rescale: float = 0.0,
                       generator: Optional[torch.Generator] = None,
                       noise: Optional[NoiseFn] = None):
         """Upscale existing (b, h, w, c) [0, 1] images through one super-res
@@ -356,23 +555,32 @@ class Imagen:
         if not (1 <= stage < self.num_unets and self.unet_configs[stage].lowres_cond):
             raise ValueError(f"stage {stage} is not a super-resolution stage")
         text_embeds, text_masks = self._text_inputs(texts, text_embeds, text_masks)
+        if cond_scale != 1.0 and not self.can_classifier_guidance:
+            raise ValueError("classifier-free guidance needs a model trained with cond_drop_prob > 0")
         draw = self._noise_fn(noise, generator)
         images = torch.as_tensor(images, dtype=torch.float32, device=self.device)
         b = images.shape[0]
+        if b != text_embeds.shape[0]:
+            raise ValueError(f"{b} images for {text_embeds.shape[0]} text encodings")
         noise_level = default(lowres_sample_noise_level, self.lowres_sample_noise_level)
         lowres, lowres_times = self._lowres_condition(stage, images, noise_level, draw)
         size = self.image_sizes[stage]
         shape = (b, size, size, self.channels)
         start_at = None
         if start_noise_level is not None:
-            start_at = self._truncation_start(stage, start_noise_level, sampler, sample_steps)
+            start_at = self._truncation_start(stage, start_noise_level, sampler, sample_steps,
+                                              grid)
             init = self._truncation_init(stage, images, start_at, draw(shape))
         else:
             init = draw(shape)
-        return self.sample_stage(stage, text_embeds, text_masks, cond_scale, init_noise=init,
-                                 lowres_cond_img=lowres, lowres_noise_times=lowres_times,
-                                 sampler=sampler, sample_steps=sample_steps, start_at=start_at,
-                                 noise=draw)
+        rows = b * (2 if cond_scale != 1.0 else 1)
+        return self.sample_stage(
+            stage, text_embeds, text_masks, cond_scale, init_noise=init,
+            lowres_cond_img=lowres, lowres_noise_times=lowres_times, sampler=sampler,
+            sample_steps=sample_steps, start_at=start_at, grid=grid,
+            cache_interval=self._resolve_cache_interval(cache_interval, stage, rows,
+                                                        text_embeds.shape[1]),
+            guidance_rescale=guidance_rescale, noise=draw)
 
     # ------------------------------------------------------------------ #
     # training loss                                                       #

@@ -5,13 +5,16 @@ the JAX package. ``UnetModel`` is the same topology: CrossEmbed stem -> down
 path (cross-attention ResnetBlock, N ResnetBlocks, TransformerBlock per
 resolution) -> middle -> mirrored up path with 2^-0.5-scaled skip concats ->
 final ResnetBlock and 3x3 conv. Module names are the flax names, so a JAX
-parameter tree loads by name. Encoder-feature caching is not ported.
+parameter tree loads by name. Encoder-feature caching: a forward can return
+its stem + down-path features ``(x, hiddens)`` and a later forward can take
+them in place of recomputing them (:meth:`UnetModel.forward`);
+:func:`encoder_cache_shapes` gives their shapes without running the net.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, ClassVar, Dict, Optional, Tuple, Union
+from typing import Any, ClassVar, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -37,6 +40,8 @@ from .layers import (
 from .t5 import get_encoded_dim
 
 MAX_TEXT_LEN = 256
+# (down-path output, hiddens) of an earlier forward: see UnetModel.forward
+EncoderCache = Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]
 
 
 @dataclass(frozen=True)
@@ -269,7 +274,9 @@ class UnetModel(nn.Module):
                 lowres_noise_times: Optional[torch.Tensor] = None,
                 text_embeds: Optional[torch.Tensor] = None,
                 text_mask: Optional[torch.Tensor] = None,
-                text_keep_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                text_keep_mask: Optional[torch.Tensor] = None,
+                encoder_cache: Optional[EncoderCache] = None,
+                return_encoder_cache: bool = False):
         """Predict the noise in `x` (b, s, s, c) at integer timesteps `time`
         (b,); returns (b, s, s, channels_out) float32.
 
@@ -277,6 +284,11 @@ class UnetModel(nn.Module):
         :param lowres_noise_times: (b,) its noise-augmentation times.
         :param text_embeds: (b, L, text_embed_dim) T5 encodings; text_mask (b, L).
         :param text_keep_mask: (b,) False rows get the null conditioning.
+        :param encoder_cache: ``(x, hiddens)`` returned by an earlier call:
+            the low-res concat, the stem and the down path are skipped and
+            these features used instead; the time and text conditioning, the
+            middle and the up path run anew.
+        :param return_encoder_cache: also return the ``(x, hiddens)`` tuple.
         """
         cfg = self.config
         if cfg.lowres_cond and lowres_cond_img is None:
@@ -291,23 +303,27 @@ class UnetModel(nn.Module):
         skip_scale = 2 ** -0.5
         block = lambda name: getattr(self, name)  # noqa: E731
 
-        if lowres_cond_img is not None:
-            x = torch.cat([x, lowres_cond_img.to(self.dtype)], dim=-1)
-        x = self.init_conv(x)
-
-        hiddens = []
-        for ind, (_, nblocks, _, attn, _) in enumerate(layer_params):
-            if mem_eff:
-                x = block(f"down{ind}_pre")(x)
-            x = block(f"down{ind}_init_block")(x, t, c)
-            for j in range(nblocks):
-                x = block(f"down{ind}_block{j}")(x, t)
+        if encoder_cache is not None:
+            # the up path pops from the list: take a fresh one each reuse
+            x, hiddens = encoder_cache[0], list(encoder_cache[1])
+        else:
+            if lowres_cond_img is not None:
+                x = torch.cat([x, lowres_cond_img.to(self.dtype)], dim=-1)
+            x = self.init_conv(x)
+            hiddens = []
+            for ind, (_, nblocks, _, attn, _) in enumerate(layer_params):
+                if mem_eff:
+                    x = block(f"down{ind}_pre")(x)
+                x = block(f"down{ind}_init_block")(x, t, c)
+                for j in range(nblocks):
+                    x = block(f"down{ind}_block{j}")(x, t)
+                    hiddens.append(x)
+                if attn:
+                    x = block(f"down{ind}_attn")(x)
                 hiddens.append(x)
-            if attn:
-                x = block(f"down{ind}_attn")(x)
-            hiddens.append(x)
-            if not mem_eff:
-                x = block(f"down{ind}_post")(x)
+                if not mem_eff:
+                    x = block(f"down{ind}_post")(x)
+        cache = (x, tuple(hiddens)) if return_encoder_cache else None
 
         x = self.mid_block1(x, t, c)
         if cfg.attend_at_middle:
@@ -328,4 +344,23 @@ class UnetModel(nn.Module):
                 x = block(f"up{rev}_upsample")(x)
 
         x = self.final_res_block(x, t)
-        return self.final_conv(x).float()
+        out = self.final_conv(x).float()
+        return (out, cache) if return_encoder_cache else out
+
+
+def encoder_cache_shapes(cfg: UnetConfig, batch: int, size: int) -> List[Tuple[int, ...]]:
+    """The (b, h, w, c) shapes of the tensors an encoder cache holds, for
+    `batch` rows of `size` x `size` images: the down path's output first,
+    then the hiddens in the order the down path appends them. Derived from
+    `cfg` alone, without running the net."""
+    layer_params = cfg.layer_params()
+    last = len(layer_params) - 1
+    hiddens, s = [], size
+    for ind, ((dim_in, dim_out), nblocks, *_) in enumerate(layer_params):
+        channels = dim_in
+        if cfg.memory_efficient:  # a 4x4 stride-2 conv first
+            s, channels = s // 2, dim_out
+        hiddens += [(batch, s, s, channels)] * (nblocks + 1)
+        if not cfg.memory_efficient:  # stride-2 conv, or the parallel sum at the last
+            s, channels = (s if ind == last else s // 2), dim_out
+    return [(batch, s, s, channels), *hiddens]

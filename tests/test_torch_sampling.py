@@ -143,8 +143,8 @@ def test_cascade_with_injected_noise(pair, steps, sr_level):
     jimg0, jimg1 = _jax_cascade(ref, params, embeds, mask, noises, steps, sr_level)
     timg0, timg1 = ours.sample(text_embeds=torch.from_numpy(embeds), text_masks=torch.from_numpy(mask),
                                cond_scale=COND_SCALE, sampler="ddim", sample_steps=steps,
-                               sr_start_noise_levels=sr_level, noise=_injector(noises),
-                               return_all_stage_outputs=True)
+                               sr_start_noise_levels=sr_level, cache_interval=None,
+                               noise=_injector(noises), return_all_stage_outputs=True)
     _close(timg0.numpy(), jimg0, 2e-3)
     _close(timg1.numpy(), jimg1, 2e-3)
     assert timg1.shape == (B, 32, 32, 3) and 0.0 <= float(timg1.min()) <= float(timg1.max()) <= 1.0
@@ -166,7 +166,8 @@ def test_super_resolve_with_injected_noise(pair):
               jnp.float32(COND_SCALE), lowres, times, init)
     timg = ours.super_resolve(images, text_embeds=torch.from_numpy(embeds),
                               text_masks=torch.from_numpy(mask), cond_scale=COND_SCALE,
-                              sample_steps=6, start_noise_level=0.3, noise=_injector([aug, n1]))
+                              sample_steps=6, start_noise_level=0.3, cache_interval=None,
+                              noise=_injector([aug, n1]))
     _close(timg.numpy(), jimg, 2e-3)
 
 
