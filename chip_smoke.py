@@ -28,6 +28,11 @@ Phases, one line each with elapsed seconds; any failure exits non-zero:
    (``cache_interval=None``, as the committed rows were made). Colour
    distances are held to 0.06 (committed rows: base 0.0245, truncated
    0.0189).
+7q. quality rows of metrics.json on the committed weights, each a mean over
+   4 generator seeds (``quality.py``): sr/start0.2 above its bicubic
+   baseline, sr/start0.4 above its committed row less 1 dB (that row is
+   itself below bicubic), holdout/trained and holdout/held (base stage and
+   cascade truncated at 0.2) and trunc/sr0.4 colour distances at most 0.06.
 7a. solvers: the base stage at 10 steps as DDIM on the lambda grid, DPM++ on
    the lambda grid and UniPC on the karras grid, each colour distance held
    to 0.06 (committed 0.0312, 0.0266, 0.0277).
@@ -56,6 +61,9 @@ Phases, one line each with elapsed seconds; any failure exits non-zero:
    bias from a mask dropping about a quarter of the keys), with the same
    limits and times as phase 3 and, for attention, autograd through
    ``F.scaled_dot_product_attention`` as the yardstick.
+10a. every attention kernel, forward and backward, bfloat16 and float32, on
+   a batch whose sample 1 drops every key: uniform rows, P = 1/j, against
+   the plain versions at the same limits.
 11. reference train step: the committed weights as float32 master
    parameters, one step at batch 2 with injected draws, on the card
    (kernels) and on the CPU (plain versions), TF32 off: losses within 1e-4
@@ -72,6 +80,17 @@ Phases, one line each with elapsed seconds; any failure exits non-zero:
 13. a measurement, not a check: host ms per training step and a
    torch.profiler trace of 5 steps, with the kernel families as in
    phase 8.
+13a. the harness: ``python -m minimagen_tpu_torch.train`` on the lite
+   cascade at full width (a written parameters/ directory, batch 16, 512
+   synthetic items, checkpoints and validation every 10 batches, bf16
+   compute, EMA 0.9995, a bf16 Adam first moment), a ``-rd`` restart for one
+   more epoch, then ``python -m minimagen_tpu_torch.inference`` (DDIM-50,
+   seed 0) on the 8 eval captions, as subprocesses, each counting its own
+   launches: losses finite, the progress log's checkpoint and validation
+   lines, the restart resuming at the dumped step with Adam's count equal
+   to it, 8 PNGs of 256x256x3 whose pixels equal ``Imagen.sample``'s from
+   the same weights, seed and arguments; MinimagenTrain's steps/sec beside
+   ``train_lite``'s at the same recipe.
 
 The reference's default cascade (``generate.default_imagen``: Base at 64px,
 Super at 128px, t5_base through the hash encoder, 2.33B parameters, fresh
@@ -159,6 +178,34 @@ REFERENCE_SOLVER_KW = dict(cache_interval=2, guidance_rescale=0.7, sr_start_nois
 # guided DDIM steps per timed run, runs per setting, and repetitions of the
 # whole measurement (the host's pace shifts between blocks of runs)
 CACHE_TIMING_STEPS, CACHE_TIMING_RUNS, CACHE_TIMING_REPS = 4, 20, 3
+# quality rows of metrics.json checked on the committed weights: truncated
+# super-resolution PSNR (sr/start0.2 must beat its bicubic baseline;
+# sr/start0.4's committed row, 24.44 dB, is itself below its 27.08 dB
+# baseline, so it is held to the committed value less SR_PSNR_SLACK_DB) and
+# the holdout colour distances (COLOR_LIMIT each)
+SR_COMMITTED = {0.2: (27.96, 27.08), 0.4: (24.44, 27.08)}  # (psnr, bicubic) dB
+SR_PSNR_SLACK_DB = 1.0
+SR_NUMPY_SEEDS = (3, 4)  # the sr rows also on quality.numpy_noise draws (logged)
+# each row is a mean over this many generator seeds: one draw of 8 images
+# per holdout tag moved a colour distance by ~0.04 on the card (one image
+# of another colour), where the rows and their limit are ~0.02-0.06 apart
+QUALITY_SEEDS = 4
+HOLDOUT_COMMITTED = {"trained": (0.0216, 0.015), "held": (0.0321, 0.0499)}  # base, truncated
+# the harness phase: train.py's CLI on the lite cascade at full width (512
+# synthetic items, batch 16: 32 steps an epoch), a restart for one more
+# epoch, then the inference CLI (DDIM-50, seed 0) on the eval captions
+HARNESS_CHCKPT_NUM = 10
+HARNESS_TRAIN_ARGS = ["-b", "16", "-e", "1", "-f", "0.25", "-vn", "15", "-cn",
+                      str(HARNESS_CHCKPT_NUM), "--BF16", "--EMA", "0.9995", "--MU_DTYPE", "bf16"]
+HARNESS_INFER_ARGS = ["--SAMPLER", "ddim", "--SAMPLE_STEPS", str(SAMPLE_STEPS), "--SEED", "0"]
+HARNESS_SIDE = 256
+# each run: 2048 * 0.25 = 512 items at batch 16, and a checkpoint and a
+# validation at every HARNESS_CHCKPT_NUM-th batch from 0; a progress-log line
+# with one of the HARNESS_FAULTS means a failure the harness caught and
+# trained past
+HARNESS_STEPS = 32
+HARNESS_FAULTS = ("ABORTED", "SKIPPED", "FAILED", "RESTORED")
+HARNESS_TIMEOUT_S = 600
 SEED = 0
 DEVICE = "cuda"
 
@@ -722,14 +769,6 @@ def counted(fn):
     return out, dict(kernels.LAUNCHES), time.perf_counter() - t0
 
 
-def psnr_db(a, b):
-    """PSNR of [0, 1] images, as tools/flagship_quality_eval.py computes it."""
-    import numpy as np
-
-    mse = float(np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2))
-    return 99.0 if mse == 0 else 10.0 * np.log10(1.0 / mse)
-
-
 def log_cache_decisions(imagen, rows, text_len):
     """Each stage's 'auto' decision at `rows` guided rows, with the cost
     model's numbers."""
@@ -798,7 +837,7 @@ def cache_phases(imagen, captions):
     None, equal bits. Returns {path: launches}."""
     import numpy as np
     import torch
-    from minimagen_tpu_torch.quality import color_metric, grad_mean
+    from minimagen_tpu_torch.quality import color_metric, grad_mean, psnr_db
 
     b = len(captions)
     paths = {}
@@ -1715,6 +1754,329 @@ def kernel_entries(rows, launches):
     return entries
 
 
+# --------------------------------------------------------------------------- #
+# quality rows on the committed weights (tools/flagship_quality_eval.py)       #
+# --------------------------------------------------------------------------- #
+def eval_sr(imagen):
+    """``eval_sr`` (tools/flagship_quality_eval.py:384-408) through
+    ``quality.sr_rows``: items 0, 1, 7 and 13 of the synthetic set at 256px,
+    resized to 64px, super-resolved from start levels 0.2 and 0.4 (DDIM-50,
+    cond_scale 3.0, no caching) at QUALITY_SEEDS generator seeds; the mean
+    PSNR against the originals is held to its limit. The same seeds in
+    float32 are logged beside it."""
+    import numpy as np
+    import torch
+    from minimagen_tpu_torch.quality import mean_rows, sr_rows
+
+    per_seed = [sr_rows(imagen, 3 + i, SAMPLE_STEPS, COND_SCALE) for i in range(QUALITY_SEEDS)]
+    rows, failures = mean_rows(per_seed), []
+    for level, (committed, committed_bicubic) in SR_COMMITTED.items():
+        row = rows[f"sr/start{level}"]
+        p, bicubic = row["psnr_db"], row["bicubic_baseline_db"]
+        limit = bicubic if level == 0.2 else committed - SR_PSNR_SLACK_DB
+        seeds = ", ".join(f"{r[f'sr/start{level}']['psnr_db']:.2f}" for r in per_seed)
+        log(f"  sr/start{level}: {p:.2f} dB over {QUALITY_SEEDS} seeds ({seeds}), bicubic "
+            f"{bicubic:.2f} dB (committed {committed} / {committed_bicubic}); limit: above "
+            f"{limit:.2f} dB ({'the bicubic baseline' if level == 0.2 else 'the committed row less 1 dB'})")
+        if not (row["finite"] and p > limit):
+            failures.append(f"sr/start{level} {p:.2f} dB not above {limit:.2f}")
+    # measurements, not checks, of the bf16 path's open loss at start 0.4
+    # (ROADMAP section 3): the same seeds in float32 (TF32 is off), and both
+    # dtypes on numpy draws that tests/test_torch_quality_witness.py
+    # --sr-numpy gives the JAX package too
+    from minimagen_tpu_torch.generate import load_lite
+
+    f32 = load_lite(device=DEVICE, dtype=torch.float32)
+    per_seed32 = [sr_rows(f32, 3 + i, SAMPLE_STEPS, COND_SCALE) for i in range(QUALITY_SEEDS)]
+    for level in SR_COMMITTED:
+        vals = [r[f"sr/start{level}"]["psnr_db"] for r in per_seed32]
+        bf16 = rows[f"sr/start{level}"]["psnr_db"]
+        log(f"  sr/start{level} in float32: {float(np.mean(vals)):.2f} dB over {QUALITY_SEEDS} "
+            f"seeds ({', '.join(f'{v:.2f}' for v in vals)}); bf16 {bf16:.2f} dB")
+    for seed in SR_NUMPY_SEEDS:
+        same = {name: sr_rows(m, seed, SAMPLE_STEPS, COND_SCALE, numpy_draws=True)
+                for name, m in (("bf16", imagen), ("float32", f32))}
+        log(f"  numpy draws seeded {seed}: " + "; ".join(
+            f"sr/start{level} bf16 {same['bf16'][f'sr/start{level}']['psnr_db']:.2f} / float32 "
+            f"{same['float32'][f'sr/start{level}']['psnr_db']:.2f} dB" for level in SR_COMMITTED))
+    del f32
+    if failures:
+        raise PhaseError("; ".join(failures))
+    return rows
+
+
+def eval_holdout(imagen):
+    """``eval_holdout`` (tools/flagship_quality_eval.py:320-356) through
+    ``quality.holdout_rows``: 8 captions cycling through the trained combos,
+    then through the 3 held-out ones; the base stage alone and the cascade
+    truncated at 0.2 (DDIM-50, cond_scale 3.0, no caching) at QUALITY_SEEDS
+    generator seeds; the mean colour distances held to COLOR_LIMIT."""
+    from minimagen_tpu_torch.generate import LITE_CKPT_DIR
+    from minimagen_tpu_torch.quality import holdout_rows, mean_rows
+
+    with open(os.path.join(LITE_CKPT_DIR, "eval", "metrics.json")) as f:
+        held = json.load(f)["_config"]["held_combos"]
+    per_seed = [holdout_rows(imagen, held, 23 + i, SAMPLE_STEPS, COND_SCALE)
+                for i in range(QUALITY_SEEDS)]
+    rows, failures = mean_rows(per_seed), []
+    for tag, (cb, cc) in HOLDOUT_COMMITTED.items():
+        row = rows[f"holdout/{tag}"]
+        mb, mc = row["base64_color_dist"], row["trunc_cascade_color_dist"]
+        seeds = ", ".join(f"{r[f'holdout/{tag}']['base64_color_dist']:.4f} / "
+                          f"{r[f'holdout/{tag}']['trunc_cascade_color_dist']:.4f}" for r in per_seed)
+        log(f"  holdout/{tag}: base {mb:.4f} (committed {cb}), truncated {mc:.4f} (committed "
+            f"{cc}) over {QUALITY_SEEDS} seeds ({seeds}); limit {COLOR_LIMIT}, margins "
+            f"{COLOR_LIMIT - mb:.4f} / {COLOR_LIMIT - mc:.4f} ({row['captions']})")
+        for name, value in (("base", mb), ("truncated", mc)):
+            if not (row["finite"] and value <= COLOR_LIMIT):
+                failures.append(f"holdout/{tag} {name} colour distance {value:.4f}")
+    if failures:
+        raise PhaseError("; ".join(failures))
+    return rows
+
+
+def eval_trunc(imagen, captions, level=0.4, committed=0.037):
+    """``trunc/sr0.4``: the cascade truncated at 0.4 on the eval captions
+    (``quality.trunc_row``, DDIM-50, no caching) at QUALITY_SEEDS seeds;
+    the mean colour distance held to COLOR_LIMIT."""
+    from minimagen_tpu_torch.quality import mean_rows, trunc_row
+
+    per_seed = [trunc_row(imagen, captions, level, SEED + 30 + i, SAMPLE_STEPS, COND_SCALE)
+                for i in range(QUALITY_SEEDS)]
+    row = mean_rows(per_seed)[f"trunc/sr{level}"]
+    seeds = ", ".join(f"{r[f'trunc/sr{level}']['color_dist']:.4f}" for r in per_seed)
+    log(f"  trunc/sr{level}: color_dist {row['color_dist']:.4f} over {QUALITY_SEEDS} seeds "
+        f"({seeds}; limit {COLOR_LIMIT}, committed {committed}) grad_mean {row['grad_mean']:.4f}")
+    if not (row["finite"] and row["color_dist"] <= COLOR_LIMIT):
+        raise PhaseError(f"trunc/sr{level} colour distance {row['color_dist']:.4f}")
+    return row
+
+
+def check_dropped_rows():
+    """Every forward and backward attention kernel on a batch whose sample 1
+    drops every key (the others about a quarter), bfloat16 and float32,
+    against the plain versions, at the limits of the other checks: the
+    dropped rows attend uniformly, P = 1/j per key. Returns the rows."""
+    import torch
+    from minimagen_tpu_torch.ops import attention as attn
+    from minimagen_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
+    rows = []
+    for kind, (b, h, n, j) in (("mqa", (3, 8, 1024, 1025)), ("mqa", (3, 8, 64, 65)),
+                               ("mha", (3, 8, 1024, 259)), ("mha", (3, 8, 256, 261)),
+                               ("mha", (3, 8, 100, 7))):
+        for dtype in (torch.bfloat16, torch.float32):
+            kv_shape = (b, j, 64) if kind == "mqa" else (b, h, j, 64)
+            q = (torch.randn(b, h, n, 64, generator=gen, device=DEVICE) / 8.0).to(dtype)
+            k, v = (torch.randn(kv_shape, generator=gen, device=DEVICE).to(dtype) for _ in "kv")
+            g = torch.randn(b, h, n, 64, generator=gen, device=DEVICE).to(dtype)
+            keep = torch.rand(b, j, generator=gen, device=DEVICE) >= 0.25
+            keep[:, 0] = True
+            keep[1] = False
+            bias = attn.mask_bias(keep)
+            plain, plain_bwd = fa._PLAIN[kind]
+            out, lse = fa.attention_forward_kernel(kind, q, k, v, bias, with_lse=True)
+            grads = fa.attention_backward_kernel(kind, q, k, v, bias, out, g, lse)
+            refs = (plain(q, k, v, attn_bias=bias), *plain_bwd(q, k, v, g, attn_bias=bias))
+            sync()
+            name = str(dtype).split(".")[-1]
+            err, lim = _worst(list(zip((out, *grads), refs)), name)
+            rows.append(dict(kind=kind, shape=[b, h, n, j], dtype=name, max_abs_err=err,
+                             limit=lim))
+            log(f"  {kind} {(b, h, n, j)} {name}, sample 1 fully dropped: forward and backward "
+                f"max_abs_err {err:.3e} (limit {lim:.3e}) {'ok' if err <= lim else 'FAIL'}")
+    if any(r["max_abs_err"] > r["limit"] for r in rows):
+        raise PhaseError("an attention kernel disagrees with the plain version on dropped rows")
+    return rows
+
+
+# --------------------------------------------------------------------------- #
+# the harness and the CLIs on the lite cascade                                 #
+# --------------------------------------------------------------------------- #
+def read_png(path):
+    """An 8-bit RGB PNG as written by ``generate.write_png`` (filter 0 on
+    every row) -> (h, w, 3) uint8; the card has no imaging library."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise PhaseError(f"{path} is not a PNG")
+    pos, idat, size = 8, b"", None
+    while pos < len(data):
+        (n,), kind = struct.unpack(">I", data[pos:pos + 4]), data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + n]
+        if kind == b"IHDR":
+            w, h, depth, color = struct.unpack(">IIBB", body[:10])
+            if (depth, color) != (8, 2):
+                raise PhaseError(f"{path}: not 8-bit RGB")
+            size = (h, w)
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(size[0], 1 + 3 * size[1])
+    if rows[:, 0].any():
+        raise PhaseError(f"{path}: row filters other than 0")
+    return rows[:, 1:].reshape(size[0], size[1], 3)
+
+
+def write_lite_parameters(dest):
+    """A parameters/ directory of the lite cascade: its U-Net configs
+    (``generate.lite_unet_configs``), its Imagen config and the flags the
+    committed run was trained with."""
+    from minimagen_tpu_torch.generate import lite_unet_configs
+    from minimagen_tpu_torch.training import imagen_config_dict
+
+    os.makedirs(dest)
+    for i, cfg in enumerate(lite_unet_configs()):
+        with open(os.path.join(dest, f"unet_{i}_params_lite.json"), "w") as f:
+            json.dump(cfg.to_dict(), f, indent=4)
+    with open(os.path.join(dest, "imagen_params_lite.json"), "w") as f:
+        json.dump(imagen_config_dict(dict(image_sizes=[HARNESS_SIDE // 4, HARNESS_SIDE],
+                                          timesteps=1000,
+                                          cond_drop_prob=0.1, text_encoder_name="t5_tiny")),
+                  f, indent=4)
+    with open(os.path.join(dest, "training_parameters_lite.txt"), "w") as f:
+        f.write(f"--MAX_NUM_WORDS=16\n--IMG_SIDE_LEN={HARNESS_SIDE}\n--T5_NAME=t5_tiny\n"
+                "--TIMESTEPS=1000\n")
+
+
+def run_cli(module, args, cwd):
+    """``python -m minimagen_tpu_torch.<module> args`` in `cwd`; returns the
+    JSON object of its last output line and its seconds. Its output goes to
+    the log."""
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", f"minimagen_tpu_torch.{module}", *args],
+                          cwd=cwd, env=env, capture_output=True, text=True,
+                          timeout=HARNESS_TIMEOUT_S)
+    seconds = time.time() - t0
+    if _log_file is not None:
+        _log_file.write(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        log(proc.stdout[-3000:] + proc.stderr[-3000:])
+        raise PhaseError(f"{module} exited {proc.returncode}")
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    if not lines:
+        raise PhaseError(f"{module} printed no summary line")
+    return json.loads(lines[-1]), seconds
+
+
+def _finite_losses(summary):
+    import numpy as np
+
+    vals = [v for h in summary["history"] for key in ("train", "valid", "batch_train")
+            for v in h[key]]
+    return bool(vals) and bool(np.isfinite(vals).all())
+
+
+def harness_phase(captions):
+    """The lite cascade through the port's CLIs: train (``-p`` a written
+    parameters/ directory, 32 steps), restart with ``-rd`` for one more
+    epoch, sample the eval captions with the inference CLI; then the same
+    samples from ``Imagen.sample`` in this process with the directory's
+    weights, seed and arguments (torch's default TF32 settings, as the CLI
+    runs); and ``train_lite``'s host ms per step at the same recipe.
+    Returns the launch counts of the three CLI runs."""
+    import glob
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from minimagen_tpu_torch.generate import load_minimagen
+    from minimagen_tpu_torch.models.imagen import to_uint8
+    from minimagen_tpu_torch.training import train_lite
+
+    work = tempfile.mkdtemp(prefix="harness_", dir=os.path.join(REPO, "build"))
+    try:
+        params = os.path.join(work, "parameters")
+        write_lite_parameters(params)
+        first, t_first = run_cli("train", ["-p", params, *HARNESS_TRAIN_ARGS, "-ts", "lite_a",
+                                           "--DEVICE", DEVICE], work)
+        second, t_second = run_cli("train", ["-rd", "training_lite_a", *HARNESS_TRAIN_ARGS,
+                                             "-ts", "lite_b", "--DEVICE", DEVICE], work)
+        cap_file = os.path.join(work, "captions.txt")
+        with open(cap_file, "w") as f:
+            f.writelines(f"{c}\n" for c in captions)
+        infer, t_infer = run_cli("inference", ["-d", "training_lite_b", "-c", cap_file,
+                                               *HARNESS_INFER_ARGS, "--DEVICE", DEVICE], work)
+        failures = []
+        for name, summary, seconds in (("train", first, t_first), ("restart", second, t_second)):
+            s = summary["summary"]
+            perf = s["perf"]
+            log(f"  {name}: {seconds:.1f} s, steps {s['start_step']} -> {s['final_step']}, Adam "
+                f"count {s['start_adam_count']} -> {s['adam_count']}, train step "
+                f"{perf['steps_per_sec']:.3f} steps/s ({1e3 * perf['mean_s']:.1f} ms), loader "
+                f"wait {s['loader_s']:.2f} s; history " + json.dumps(s["history"]))
+            if not _finite_losses(s):
+                failures.append(f"{name}: a loss is not finite")
+            log_text = open(os.path.join(summary["training_directory"],
+                                         "training_progess.txt")).read()
+            for needle in ("Checkpoint created at batch number 0", "U-Nets Avg Valid Losses",
+                           "Train steps/sec"):
+                if needle not in log_text:
+                    failures.append(f"{name}: training_progess.txt lacks {needle!r}")
+            caught = [ln for ln in log_text.splitlines() if any(f in ln for f in HARNESS_FAULTS)]
+            if caught:
+                failures.append(f"{name}: training_progess.txt reports {caught}")
+            validated = [h["batch"] for h in s["history"]]
+            if validated != list(range(0, HARNESS_STEPS, HARNESS_CHCKPT_NUM)):
+                failures.append(f"{name}: validations at batches {validated}")
+        s1, s2 = first["summary"], second["summary"]
+        if s1["final_step"] != HARNESS_STEPS or s2["final_step"] != 2 * HARNESS_STEPS:
+            failures.append(f"the runs ended at steps {s1['final_step']} and {s2['final_step']}, "
+                            f"not {HARNESS_STEPS} and {2 * HARNESS_STEPS}")
+        if not (s2["start_step"] == s1["final_step"] and s2["start_adam_count"] == s2["start_step"]
+                and s2["final_step"] == s2["adam_count"]):
+            failures.append(f"the restart did not resume at step {s1['final_step']}")
+        pngs = sorted(glob.glob(os.path.join(work, "generated_images_*", "generated_images",
+                                             "image_*.png")),
+                      key=lambda p: int(p.rsplit("_", 1)[1].split(".")[0]))
+        images = np.stack([read_png(p) for p in pngs]) if pngs else None
+        log(f"  inference: {t_infer:.1f} s, {len(pngs)} PNGs "
+            f"{None if images is None else images.shape}")
+        if images is None or images.shape != (len(captions), HARNESS_SIDE, HARNESS_SIDE, 3):
+            failures.append(f"inference wrote {len(pngs)} PNGs")
+        else:
+            prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+            try:
+                imagen = load_minimagen(os.path.join(work, "training_lite_b"), device=DEVICE)
+                gen = torch.Generator(device=DEVICE).manual_seed(0)
+                direct = imagen.sample(texts=captions, cond_scale=COND_SCALE, sampler="ddim",
+                                       sample_steps=SAMPLE_STEPS, grid="time", generator=gen)
+                direct = to_uint8(direct.float().cpu().numpy())
+            finally:
+                torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+            diff = int((direct != images).sum())
+            log(f"  the CLI's pixels against Imagen.sample's, same weights, seed and arguments: "
+                f"{diff} of {images.size} differ")
+            if diff:
+                failures.append(f"{diff} pixels differ from Imagen.sample")
+            del imagen
+        run = train_lite(16, TRAIN_BATCH, mu_dtype=torch.bfloat16, device=DEVICE)
+        for name, s in (("train", s1), ("restart", s2)):
+            perf = s["perf"]
+            loop_s = perf["mean_s"] + s["loader_s"] / max(s["final_step"] - s["start_step"], 1)
+            log(f"  MinimagenTrain ({name}): {perf['steps_per_sec']:.3f} steps/s of the train step "
+                f"({1e3 * perf['mean_s']:.1f} ms), {1.0 / loop_s:.3f} steps/s with the loader's "
+                f"wait ({1e3 * loop_s:.1f} ms); train_lite at the same recipe (bf16 first moment, "
+                f"16 steps, staged batches): {run.host_ms_per_step:.1f} ms/step, "
+                f"{1e3 / run.host_ms_per_step:.3f} steps/s")
+        del run
+        if failures:
+            raise PhaseError("; ".join(failures))
+        return {"harness train": first["launches"], "harness restart": second["launches"],
+                "harness inference": infer["launches"]}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 class phase:
     """Context manager printing one line per phase with its elapsed seconds."""
 
@@ -1800,6 +2162,12 @@ def main():
     if missing:
         log(f"kernels never launched on the main path: {missing}")
         return 1
+    with phase("quality: sr/start0.2 and sr/start0.4 (super_resolve, DDIM-50)"):
+        eval_sr(imagen)
+    with phase("quality: holdout/trained and holdout/held (base and truncated cascade)"):
+        eval_holdout(imagen)
+    with phase("quality: trunc/sr0.4 (the cascade truncated at 0.4)"):
+        eval_trunc(imagen, captions)
 
     with phase(f"solvers: the base stage at {SOLVER_STEPS} steps, DDIM@lambda, DPM++@lambda, "
                "UniPC@karras"):
@@ -1825,6 +2193,8 @@ def main():
         log(f"  launches in one training step: {step_launches}")
     with phase("backward kernels vs plain versions at the training step's shapes"):
         bwd_rows = backward_checks(train_shapes)
+    with phase("attention kernels on fully dropped rows vs plain versions"):
+        check_dropped_rows()
     with phase("reference train step: card float32 vs cpu float32"):
         reference_train_step()
     with phase(f"learn: train_lite, {LEARN_STEPS} steps, batch {TRAIN_BATCH}"):
@@ -1832,6 +2202,11 @@ def main():
     with phase("measure: profile training steps"):
         profile_train(run)
     del run
+    with phase("harness: train CLI on the lite cascade, restart, inference CLI"):
+        harness_launches = harness_phase(captions)
+        for name, counts in harness_launches.items():
+            require_launched(counts, name, names=tuple(KERNEL_INFO) + (
+                tuple(BACKWARD_INFO) if "inference" not in name else ()))
 
     # ---- the reference's default cascade ----------------------------------
     with phase("free the lite objects; build the default cascade (Base + Super, seed 0)"):
@@ -1886,7 +2261,7 @@ def main():
     del big
 
     runs = {"lite sampling": launches, "lite solvers": solver_launches, **lever_paths,
-            "lite learning": train_launches, "default serving": serve_launches,
+            "lite learning": train_launches, **harness_launches, "default serving": serve_launches,
             "default DPM++ serving": fast_serve_launches, "default training": big_train_launches}
     for name, counts in runs.items():
         log(f"launches, {name}: {counts}")

@@ -13,12 +13,19 @@ What is ported so far:
   truncated super-resolution;
 - training on one device: the per-stage loss (l1/l2/huber, min-SNR, offset
   noise), clip-50 Adam with a float32 EMA, the synthetic captioned-shapes
-  set, and ``training.train_lite``, the lite cascade's recipe (with a
-  float32 Adam first moment where the committed run used bf16);
+  set, and ``training.train_lite``, the lite cascade's recipe (Adam's first
+  moment float32 by default, bf16 as the committed run kept it on request);
 - the reference's default cascade (``generate.default_imagen``: the Base and
   Super presets at 64/128px, conditioned by t5_base through the hash text
   encoder) from a seeded init, sampled and trained like the lite one; every
-  stem runs as the space-to-depth convolution (``ops/stem_conv.py``).
+  stem runs as the space-to-depth convolution (``ops/stem_conv.py``);
+- the training harness and the CLIs: ``training.MinimagenTrain`` (training
+  directories, validation, best and latest checkpoints, full-state restart,
+  a per-batch watchdog), optax's clip-50 Adam with gradient accumulation
+  and a bf16 first moment, flax-msgpack checkpoint writing that the JAX
+  package reads (``checkpoint.py``), ``generate.load_minimagen`` and
+  ``sample_and_save``, and ``python -m minimagen_tpu_torch.train`` /
+  ``.inference`` / ``.main``, the root CLIs' counterparts.
 
 Every Pallas kernel of the JAX package (multi-query and multi-head
 attention, forward and backward, with an optional mask bias; fused GroupNorm

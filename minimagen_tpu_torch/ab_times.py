@@ -4,6 +4,7 @@ and at a shape of each form), and guided sampling steps of the lite
 cascade, to compare two checkouts on one card.
 
     python minimagen_tpu_torch/ab_times.py --root PATH [--reps 50] [--kernels K,...] [--forms]
+        [--train-default STEPS]
 
 imports ``minimagen_tpu_torch`` from the checkout at PATH (so this file can
 time an older tree), builds its kernels and prints one JSON line: the
@@ -19,7 +20,11 @@ GroupNorm; by kernel name) in those steps and in a lite train step (batch
 16), from a torch.profiler trace. ``--kernels`` times only the named kernels (e.g. mha_forward,
 mha_backward) and no steps: the card then runs nothing else between their
 launches. ``--forms`` times only GroupNorm's cluster and streaming forms at
-FORM_SHAPES (the measurements behind the form rule). Run it for trees A
+FORM_SHAPES (the measurements behind the form rule). ``--train-default``
+times only STEPS train steps of the default Base+Super cascade (train.py's,
+seed 0) at batch 2 with clip-50 Adam and the EMA, as ``chip_smoke.py``
+trains it: the host ms of each synchronized step and the peak of allocated
+memory over them. Run it for trees A
 and B in turns (A, B, B, A) within one call: the card and its neighbours
 then stay the same.
 """
@@ -246,6 +251,31 @@ def train_family_ms(steps=3):
     return traced_family_ms(go, steps)
 
 
+def train_default(steps):
+    """Host ms per synchronized train step of the default cascade (batch 2
+    of the synthetic set at 128px, t5_base hash encodings of at most 64
+    words) and the peak allocated GiB over the steps."""
+    import torch
+    from minimagen_tpu_torch.generate import default_imagen
+    from minimagen_tpu_torch.training import (create_train_state, make_optimizer,
+                                              make_train_step, stage_batches)
+
+    imagen = default_imagen(device="cuda", seed=0)
+    batch = {k: v[0] for k, v in stage_batches(2, 2, 128, 64, "t5_base", device="cuda").items()}
+    opt = make_optimizer(1e-4)
+    state = create_train_state(imagen, opt, ema=True)
+    step = make_train_step(imagen, opt, ema_decay=0.9995)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, _ = step(state, batch, seed=0)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return {"ms_per_step": ms, "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--root", required=True, help="checkout whose minimagen_tpu_torch is timed")
@@ -253,6 +283,8 @@ def main(argv=None):
     p.add_argument("--kernels", help="comma-separated kernel names to time alone (no steps)")
     p.add_argument("--forms", action="store_true",
                    help="only GroupNorm's two forms at FORM_SHAPES (this tree's package)")
+    p.add_argument("--train-default", type=int, metavar="STEPS",
+                   help="only STEPS train steps of the default cascade: ms and peak memory")
     args = p.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
@@ -267,6 +299,10 @@ def main(argv=None):
     if args.forms:
         print(json.dumps({"card": torch.cuda.get_device_name(0), "root": args.root,
                           "group_norm_forms_device_ms": form_times(gen)}), flush=True)
+        return 0
+    if args.train_default:
+        print(json.dumps({"card": torch.cuda.get_device_name(0), "root": args.root,
+                          "default_train": train_default(args.train_default)}), flush=True)
         return 0
     only = set(args.kernels.split(",")) if args.kernels else None
     times, device = {}, {}

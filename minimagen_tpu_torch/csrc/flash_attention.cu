@@ -41,7 +41,9 @@
 //   1. Q-major: D = rowsum(dO * O) in float32 (from the stored O, one bf16
 //      rounding away from the TPU kernel's sum(p * dp)), then over all key
 //      tiles P = exp(S + bias - lse), dP = dO V^T, dS = P (dP - D),
-//      dq += dS K.
+//      dq += dS K. A row whose every key the bias drops is measured from its
+//      floor and gets P = 1/j, as the TPU kernel's renormalised row
+//      (dropped_row), in both passes.
 //   2. K-major: a block owns key tiles (K and V loaded once) and walks the
 //      query rows: S^T = K Q^T and dP^T = V dO^T rebuilt, dv += P^T dO,
 //      dk += dS^T Q, in registers.
@@ -139,6 +141,16 @@ __device__ __forceinline__ int sample_head() {
 __device__ __forceinline__ const float* bias_row(const float* bias, int bh, int heads, int j) {
   return bias == nullptr ? nullptr : bias + static_cast<size_t>(bh / heads) * j;
 }
+
+// A row whose every key the bias drops: all its logits sit at the mask floor
+// (-1e30 absorbs S in float32), so its log-sum-exp is that floor and the
+// log j term of floor + log j is lost to rounding. The backward measures such
+// a row from its floor: S + bias - floor is 0 for every key, and the row's
+// P = exp(0 - log j) = 1/j, the reference's renormalised row
+// (_mha_bias_bwd_kernel). Every other row keeps floor 0 and its bits.
+constexpr float kDroppedRowLse = -1e29f;  // a tenth of the mask floor
+
+__device__ __forceinline__ bool dropped_row(float lse) { return lse < kDroppedRowLse; }
 
 // ---- float32 on the CUDA cores ---------------------------------------------
 __global__ void __launch_bounds__(kBlockQ)
@@ -261,6 +273,7 @@ __global__ void __launch_bounds__(kDqRows)
     delta[static_cast<size_t>(bh) * n + row] = d_row;
   }
   const float l_row = active ? lse[static_cast<size_t>(bh) * n + row] : INFINITY;
+  const float l_adj = dropped_row(l_row) ? -logf(static_cast<float>(j)) : 0.f;  // 0: same bits
 
   float acc[kHeadDim];
 #pragma unroll
@@ -285,7 +298,7 @@ __global__ void __launch_bounds__(kDqRows)
         s = fmaf(qs[threadIdx.x][c], ks[r][c], s);
         dp = fmaf(dos[threadIdx.x][c], vs[r][c], dp);
       }
-      const float p = r < kt ? expf(s + bs[r] - l_row) : 0.f;
+      const float p = r < kt ? expf(s + bs[r] - l_row + l_adj) : 0.f;
       const float ds = p * (dp - d_row);
 #pragma unroll
       for (int c = 0; c < kHeadDim; ++c) acc[c] = fmaf(ds, ks[r][c], acc[c]);
@@ -311,6 +324,7 @@ __global__ void __launch_bounds__(kKvKeys)
   __shared__ float qs[kKvRows][kHeadDim];
   __shared__ float dos[kKvRows][kHeadDim];
   __shared__ float lse_s[kKvRows];
+  __shared__ float adj_s[kKvRows];  // -log j for a dropped row, else 0
   __shared__ float d_s[kKvRows];
 
   const int bh = sample_head();
@@ -342,7 +356,9 @@ __global__ void __launch_bounds__(kKvKeys)
     }
     if (threadIdx.x < kKvRows) {
       const bool valid = static_cast<int>(threadIdx.x) < rt;
-      lse_s[threadIdx.x] = valid ? lse[q_base + r0 + threadIdx.x] : INFINITY;  // p = 0
+      const float l = valid ? lse[q_base + r0 + threadIdx.x] : INFINITY;  // p = 0
+      lse_s[threadIdx.x] = l;
+      adj_s[threadIdx.x] = dropped_row(l) ? -logf(static_cast<float>(j)) : 0.f;
       d_s[threadIdx.x] = valid ? delta[q_base + r0 + threadIdx.x] : 0.f;
     }
     __syncthreads();
@@ -354,7 +370,7 @@ __global__ void __launch_bounds__(kKvKeys)
         s = fmaf(ks[threadIdx.x][c], qs[r][c], s);
         dp = fmaf(vs[threadIdx.x][c], dos[r][c], dp);
       }
-      const float p = expf(s + b_key - lse_s[r]);
+      const float p = expf(s + b_key - lse_s[r] + adj_s[r]);
       const float ds = p * (dp - d_s[r]);
 #pragma unroll
       for (int c = 0; c < kHeadDim; ++c) {
@@ -739,13 +755,16 @@ __device__ __forceinline__ void softmax_tile(float (&s_acc)[kR], float (&row_max
 }
 
 // softmax_tile for key tile `tile`: the lean instance unless the tile is
-// biased or ragged (warp-uniform branch).
+// biased or ragged (warp-uniform branch); a biased tile is always exact, since
+// the bias may drop every key of a row.
 template <bool kExact = false>
 __device__ __forceinline__ void softmax_at(float (&s_acc)[32], float (&row_max)[2],
                                            float (&row_sum)[2], float (&corr)[2],
                                            const float* brow, int tile, int j, int t) {
   const int k0 = tile * kRingTile, kt = min(kRingTile, j - k0);
-  if (brow != nullptr || kt < kRingTile)
+  if (brow != nullptr)
+    softmax_tile<true, true>(s_acc, row_max, row_sum, corr, brow, k0, kt, t);
+  else if (kt < kRingTile)
     softmax_tile<true, kExact>(s_acc, row_max, row_sum, corr, brow, k0, kt, t);
   else
     softmax_tile<false>(s_acc, row_max, row_sum, corr, brow, k0, kt, t);
@@ -869,19 +888,24 @@ __global__ void __launch_bounds__(128 * (kWgs + 1), 1)
 
 // dS of one 64-key tile for this thread's two rows, in place of S:
 // P = exp(S + bias - lse), 0 past j (bias and mask only where kEdge);
-// dS = P (dP - D).
+// dS = P (dP - D). Where kEdge the logits are first measured from the row's
+// floor (row_scalars: 0, or the mask floor of a dropped row, whose neg_lse
+// is then -log2 j).
 template <bool kEdge, int kR>  // kR = 32 (64 keys) or 8 (a 16-key tail)
 __device__ __forceinline__ void ds_tile(float (&s_acc)[kR], const float (&dp_acc)[kR],
-                                        const float (&neg_lse)[2], const float (&d_r)[2],
-                                        const float* brow, int k0, int kt, int t) {
+                                        const float (&neg_lse)[2], const float (&floor_r)[2],
+                                        const float (&d_r)[2], const float* brow, int k0, int kt,
+                                        int t) {
 #pragma unroll
   for (int c = 0; c < kR / 4; ++c)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int col = 8 * c + 2 * t + (e & 1), i = e >> 1;
       float x = s_acc[4 * c + e];
-      if constexpr (kEdge)
+      if constexpr (kEdge) {
         if (brow != nullptr && col < kt) x += __ldg(brow + k0 + col);
+        x -= floor_r[i];
+      }
       float p = fast_exp2(fmaf(x, kLog2e, neg_lse[i]));
       if constexpr (kEdge) p = col < kt ? p : 0.f;
       s_acc[4 * c + e] = p * (dp_acc[4 * c + e] - d_r[i]);
@@ -889,13 +913,23 @@ __device__ __forceinline__ void ds_tile(float (&s_acc)[kR], const float (&dp_acc
 }
 
 __device__ __forceinline__ void ds_at(float (&s_acc)[32], const float (&dp_acc)[32],
-                                      const float (&neg_lse)[2], const float (&d_r)[2],
-                                      const float* brow, int tile, int j, int t) {
+                                      const float (&neg_lse)[2], const float (&floor_r)[2],
+                                      const float (&d_r)[2], const float* brow, int tile, int j,
+                                      int t) {
   const int k0 = tile * kRingTile, kt = min(kRingTile, j - k0);
   if (brow != nullptr || kt < kRingTile)
-    ds_tile<true>(s_acc, dp_acc, neg_lse, d_r, brow, k0, kt, t);
+    ds_tile<true>(s_acc, dp_acc, neg_lse, floor_r, d_r, brow, k0, kt, t);
   else
-    ds_tile<false>(s_acc, dp_acc, neg_lse, d_r, brow, k0, kt, t);
+    ds_tile<false>(s_acc, dp_acc, neg_lse, floor_r, d_r, brow, k0, kt, t);
+}
+
+// The per-row scalars of pass 1 from the row's log-sum-exp `l` (+inf past
+// the rows: P = 0): the floor its logits are measured from and -lse log2e,
+// for a dropped row its floor and -log2 j.
+__device__ __forceinline__ void row_scalars(float l, int j, float& floor_r, float& neg_lse) {
+  const bool dropped = dropped_row(l);
+  floor_r = dropped ? l : 0.f;
+  neg_lse = dropped ? -log2f(static_cast<float>(j)) : -l * kLog2e;
 }
 
 // Backward pass 1 (Q-major). Grid (ceil(rows / 128), batch), a block's 128
@@ -944,7 +978,7 @@ __global__ void __launch_bounds__(128 * (kBwdWgs + 1), 1)
 
   // D and the log-sum-exp of this thread's two rows: each of a quad's 4
   // threads sums 16 of the 64 columns
-  float d_r[2], neg_lse[2];
+  float d_r[2], neg_lse[2], floor_r[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = row0 + wg * kWgRows + w * 16 + g + 8 * i;
@@ -966,7 +1000,7 @@ __global__ void __launch_bounds__(128 * (kBwdWgs + 1), 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, 1);
     acc += __shfl_xor_sync(0xffffffffu, acc, 2);
     d_r[i] = acc;
-    neg_lse[i] = valid ? -lse[r] * kLog2e : -INFINITY;  // rows past the sample: P = 0
+    row_scalars(valid ? lse[r] : INFINITY, j, floor_r[i], neg_lse[i]);  // past the sample: P = 0
     if (valid && t == 0) delta[r] = acc;
   }
 
@@ -982,7 +1016,7 @@ __global__ void __launch_bounds__(128 * (kBwdWgs + 1), 1)
   wgmma_wait<0>();
   fence_regs(s_acc);
   fence_regs(dp_acc);
-  ds_at(s_acc, dp_acc, neg_lse, d_r, brow, 0, j, t);
+  ds_at(s_acc, dp_acc, neg_lse, floor_r, d_r, brow, 0, j, t);
 
   for (int it = 0; it + 1 < tiles; ++it) {  // the last tile peeled off, as the forward
     const int s = it % kStages, sn = (it + 1) % kStages;
@@ -1002,7 +1036,7 @@ __global__ void __launch_bounds__(128 * (kBwdWgs + 1), 1)
     wgmma_wait<1>();
     fence_regs(s_acc);
     fence_regs(dp_acc);
-    ds_at(s_acc, dp_acc, neg_lse, d_r, brow, it + 1, j, t);
+    ds_at(s_acc, dp_acc, neg_lse, floor_r, d_r, brow, it + 1, j, t);
     wgmma_wait<0>();
     fence_regs(dq_acc);
     release(ring, s);
@@ -1032,11 +1066,13 @@ __global__ void __launch_bounds__(128 * (kBwdWgs + 1), 1)
 }
 
 // P^T and dS^T of one 64-row tile for this thread's two keys, in place of
-// S^T and dP^T; rows past the sample (only in a ragged tile) get P = 0.
+// S^T and dP^T; rows past the sample (only in a ragged tile) get P = 0, a
+// dropped row (its lse the mask floor) 1/j: fmaf(x, log2e, 0) rounds as the
+// product alone, so every other row keeps its bits.
 template <bool kEdge>
 __device__ __forceinline__ void dst_tile(float (&st)[32], float (&dpt)[32], const float* ls,
                                          const float* ds, const float (&b_key)[2], int valid_rows,
-                                         int t) {
+                                         float neg_log2_j, int t) {
 #pragma unroll
   for (int c = 0; c < 8; ++c)
 #pragma unroll
@@ -1044,7 +1080,8 @@ __device__ __forceinline__ void dst_tile(float (&st)[32], float (&dpt)[32], cons
       const int col = 8 * c + 2 * t + (e & 1);
       float l = ls[col];
       if constexpr (kEdge) l = col < valid_rows ? l : INFINITY;
-      const float p = fast_exp2((st[4 * c + e] + b_key[e >> 1] - l) * kLog2e);
+      const float adj = dropped_row(l) ? neg_log2_j : 0.f;
+      const float p = fast_exp2(fmaf(st[4 * c + e] + b_key[e >> 1] - l, kLog2e, adj));
       st[4 * c + e] = p;
       dpt[4 * c + e] = p * (dpt[4 * c + e] - ds[col]);
     }
@@ -1052,11 +1089,11 @@ __device__ __forceinline__ void dst_tile(float (&st)[32], float (&dpt)[32], cons
 
 __device__ __forceinline__ void dst_at(float (&st)[32], float (&dpt)[32], const float* ls,
                                        const float* ds, const float (&b_key)[2], int valid_rows,
-                                       int t) {
+                                       float neg_log2_j, int t) {
   if (valid_rows < kRingTile)
-    dst_tile<true>(st, dpt, ls, ds, b_key, valid_rows, t);
+    dst_tile<true>(st, dpt, ls, ds, b_key, valid_rows, neg_log2_j, t);
   else
-    dst_tile<false>(st, dpt, ls, ds, b_key, valid_rows, t);
+    dst_tile<false>(st, dpt, ls, ds, b_key, valid_rows, neg_log2_j, t);
 }
 
 // Backward pass 2 (K/V-major). Grid (ceil(j / 128) * splits, batch): a
@@ -1140,7 +1177,8 @@ __global__ void __launch_bounds__(128 * (kBwdWgs + 1), 1)
   wgmma_wait<0>();
   fence_regs(st);
   fence_regs(dpt);
-  dst_at(st, dpt, lse_p, delta_p, b_key, rows - t_begin * kRingTile, t);
+  const float neg_log2_j = -log2f(static_cast<float>(j));
+  dst_at(st, dpt, lse_p, delta_p, b_key, rows - t_begin * kRingTile, neg_log2_j, t);
   for (int it = 0; it + 1 < tiles; ++it) {  // the last tile peeled off, as the forward
     const int s = it % kStages, sn = (it + 1) % kStages;
     uint32_t pa[4][4], da[4][4];
@@ -1163,7 +1201,7 @@ __global__ void __launch_bounds__(128 * (kBwdWgs + 1), 1)
     fence_regs(st);
     fence_regs(dpt);
     dst_at(st, dpt, lse_p + sn * kRingTile, delta_p + sn * kRingTile, b_key,
-             rows - (t_begin + it + 1) * kRingTile, t);
+           rows - (t_begin + it + 1) * kRingTile, neg_log2_j, t);
     wgmma_wait<0>();
     fence_regs(dv_r);
     fence_regs(dk_r);
@@ -1404,14 +1442,16 @@ __global__ void __launch_bounds__(128 * (kWgs + 1), kWgs == 1 ? 2 : 1)
 // of the bias row: each thread's 16 bias values loaded once, nothing masked
 // (the multi-head pass 1's biased full tiles).
 __device__ __forceinline__ void ds_tile_biased(float (&s_acc)[32], const float (&dp_acc)[32],
-                                               const float (&neg_lse)[2], const float (&d_r)[2],
+                                               const float (&neg_lse)[2],
+                                               const float (&floor_r)[2], const float (&d_r)[2],
                                                const float* bcol, int t) {
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
     const float b[2] = {__ldg(bcol + 8 * c + 2 * t), __ldg(bcol + 8 * c + 2 * t + 1)};
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const float p = fast_exp2(fmaf(s_acc[4 * c + e] + b[e & 1], kLog2e, neg_lse[e >> 1]));
+      const float x = s_acc[4 * c + e] + b[e & 1] - floor_r[e >> 1];
+      const float p = fast_exp2(fmaf(x, kLog2e, neg_lse[e >> 1]));
       s_acc[4 * c + e] = p * (dp_acc[4 * c + e] - d_r[e >> 1]);
     }
   }
@@ -1419,12 +1459,13 @@ __device__ __forceinline__ void ds_tile_biased(float (&s_acc)[32], const float (
 
 // dS of full key tile `tile` in the multi-head pass 1 (warp-uniform branch).
 __device__ __forceinline__ void mha_ds_full(float (&s_acc)[32], const float (&dp_acc)[32],
-                                            const float (&neg_lse)[2], const float (&d_r)[2],
-                                            const float* brow, int tile, int t) {
+                                            const float (&neg_lse)[2], const float (&floor_r)[2],
+                                            const float (&d_r)[2], const float* brow, int tile,
+                                            int t) {
   if (brow != nullptr)
-    ds_tile_biased(s_acc, dp_acc, neg_lse, d_r, brow + tile * kRingTile, t);
+    ds_tile_biased(s_acc, dp_acc, neg_lse, floor_r, d_r, brow + tile * kRingTile, t);
   else
-    ds_tile<false>(s_acc, dp_acc, neg_lse, d_r, brow, 0, kRingTile, t);
+    ds_tile<false>(s_acc, dp_acc, neg_lse, floor_r, d_r, brow, 0, kRingTile, t);
 }
 
 // Backward pass 1 (Q-major). Grid (ceil(n / (64 kWgs)), heads, batch), a
@@ -1471,7 +1512,7 @@ __global__ void __launch_bounds__(128 * (kWgs + 1), 1)
 
   // D and the log-sum-exp of this thread's two rows: each of a quad's 4
   // threads sums 16 of the 64 columns
-  float d_r[2], neg_lse[2];
+  float d_r[2], neg_lse[2], floor_r[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = row0 + wg * kWgRows + w * 16 + g + 8 * i;
@@ -1493,7 +1534,7 @@ __global__ void __launch_bounds__(128 * (kWgs + 1), 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, 1);
     acc += __shfl_xor_sync(0xffffffffu, acc, 2);
     d_r[i] = acc;
-    neg_lse[i] = valid ? -lse[r] * kLog2e : -INFINITY;  // rows past n: P = 0
+    row_scalars(valid ? lse[r] : INFINITY, j, floor_r[i], neg_lse[i]);  // past n: P = 0
     if (valid && t == 0) delta[r] = acc;
   }
 
@@ -1512,7 +1553,8 @@ __global__ void __launch_bounds__(128 * (kWgs + 1), 1)
     wgmma_wait<0>();
     fence_regs(s_tail);
     fence_regs(dp_tail);
-    ds_tile<true>(s_tail, dp_tail, neg_lse, d_r, brow, full * kRingTile, j - full * kRingTile, t);
+    ds_tile<true>(s_tail, dp_tail, neg_lse, floor_r, d_r, brow, full * kRingTile,
+                  j - full * kRingTile, t);
     pack_a(pa, s_tail);
     fence_regs(dq_acc);
     wgmma_fence();
@@ -1532,7 +1574,7 @@ __global__ void __launch_bounds__(128 * (kWgs + 1), 1)
     wgmma_wait<0>();
     fence_regs(s_acc);
     fence_regs(dp_acc);
-    mha_ds_full(s_acc, dp_acc, neg_lse, d_r, brow, 0, t);
+    mha_ds_full(s_acc, dp_acc, neg_lse, floor_r, d_r, brow, 0, t);
     for (int it = 0; it + 1 < full; ++it) {  // the last full tile peeled off
       const int s = (it + 1) % kStages, sn = (it + 2) % kStages;
       uint32_t pa[4][4];
@@ -1551,7 +1593,7 @@ __global__ void __launch_bounds__(128 * (kWgs + 1), 1)
       wgmma_wait<1>();
       fence_regs(s_acc);
       fence_regs(dp_acc);
-      mha_ds_full(s_acc, dp_acc, neg_lse, d_r, brow, it + 1, t);
+      mha_ds_full(s_acc, dp_acc, neg_lse, floor_r, d_r, brow, it + 1, t);
       wgmma_wait<0>();
       fence_regs(dq_acc);
       release(ring, s);
@@ -1616,7 +1658,7 @@ __device__ __forceinline__ void tail_kv_step(float (&dkt)[8], float (&dvt)[8], u
                                              uint32_t do_tile, const TailTiles& tail,
                                              const float* ls, const float* ds,
                                              const float* tail_bias, int kt, int valid_rows,
-                                             int w, int g, int t) {
+                                             float neg_log2_j, int w, int g, int t) {
   float st[8], dpt[8];
   wgmma_fence();
   gemm_abt(st, q_tile, tail.k);
@@ -1632,7 +1674,8 @@ __device__ __forceinline__ void tail_kv_step(float (&dkt)[8], float (&dvt)[8], u
       const int key = 8 * c + 2 * t + (e & 1), row = 16 * w + g + 8 * (e >> 1);
       const bool valid = key < kt && row < valid_rows;
       const float b = (tail_bias != nullptr && key < kt) ? __ldg(tail_bias + key) : 0.f;
-      const float p = valid ? fast_exp2((st[4 * c + e] + b - ls[row]) * kLog2e) : 0.f;
+      const float l = ls[row], adj = dropped_row(l) ? neg_log2_j : 0.f;
+      const float p = valid ? fast_exp2(fmaf(st[4 * c + e] + b - l, kLog2e, adj)) : 0.f;
       dpt[4 * c + e] = valid ? p * (dpt[4 * c + e] - ds[row]) : 0.f;
       st[4 * c + e] = p;
     }
@@ -1750,7 +1793,8 @@ __global__ void __launch_bounds__(128 * (kWgs + 1), 1)
   wgmma_wait<0>();
   fence_regs(st);
   fence_regs(dpt);
-  dst_at(st, dpt, lse_p, delta_p, b_key, n - t_begin * kRingTile, t);
+  const float neg_log2_j = -log2f(static_cast<float>(j));
+  dst_at(st, dpt, lse_p, delta_p, b_key, n - t_begin * kRingTile, neg_log2_j, t);
   for (int it = 0; it + 1 < tiles; ++it) {  // the last tile peeled off
     const int s = it % kStages, sn = (it + 1) % kStages;
     uint32_t pa[4][4], da[4][4];
@@ -1773,14 +1817,14 @@ __global__ void __launch_bounds__(128 * (kWgs + 1), 1)
     fence_regs(st);
     fence_regs(dpt);
     dst_at(st, dpt, lse_p + sn * kRingTile, delta_p + sn * kRingTile, b_key,
-           n - (t_begin + it + 1) * kRingTile, t);
+           n - (t_begin + it + 1) * kRingTile, neg_log2_j, t);
     wgmma_wait<0>();
     fence_regs(dv_r);
     fence_regs(dk_r);
     if (tail_owner)
       tail_kv_step(dkt, dvt, q_s + s * kTileBytes, do_s + s * kTileBytes, tail,
                    lse_p + s * kRingTile, delta_p + s * kRingTile, tail_bias, tail_kt,
-                   n - (t_begin + it) * kRingTile, w, g, t);
+                   n - (t_begin + it) * kRingTile, neg_log2_j, w, g, t);
     release(ring, s);
   }
   {
@@ -1800,7 +1844,7 @@ __global__ void __launch_bounds__(128 * (kWgs + 1), 1)
     if (tail_owner)
       tail_kv_step(dkt, dvt, q_s + s * kTileBytes, do_s + s * kTileBytes, tail,
                    lse_p + s * kRingTile, delta_p + s * kRingTile, tail_bias, tail_kt,
-                   n - (t_begin + tiles - 1) * kRingTile, w, g, t);
+                   n - (t_begin + tiles - 1) * kRingTile, neg_log2_j, w, g, t);
     release(ring, s);
   }
 #pragma unroll

@@ -110,11 +110,17 @@ def guided_combine(logits: torch.Tensor, null_logits: torch.Tensor, cond_scale: 
     return guided
 
 
+def to_uint8(arr: np.ndarray) -> np.ndarray:
+    """[0, 1] float images -> uint8, rounded to nearest (as PIL images and
+    written PNGs hold them)."""
+    return (np.clip(arr, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+
+
 def _to_pil(arr: np.ndarray):
     """[0, 1] float HWC image -> PIL.Image (PIL is imported only here)."""
     from PIL import Image  # noqa: PLC0415
 
-    arr = (np.clip(arr, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+    arr = to_uint8(arr)
     if arr.shape[-1] == 1:
         arr = arr[..., 0]
     return Image.fromarray(arr)
@@ -123,18 +129,24 @@ def _to_pil(arr: np.ndarray):
 class Imagen:
     """Cascading text-to-image diffusion model: sampling and the training loss.
 
+    The constructor takes the JAX ``Imagen``'s parameters in its order, so a
+    training directory's ``imagen_params_*.json`` builds either one.
     `dtype` is the U-Nets' compute dtype, `param_dtype` (default `dtype`)
-    the dtype their parameters are held in."""
+    the dtype their parameters are held in; `remat` recomputes each
+    ResnetBlock and TransformerBlock in the backward pass instead of keeping
+    its activations; `only_train_unet_number` (1-based) restricts
+    :meth:`forward`'s loss to that U-Net, as the reference's does."""
 
     def __init__(self, unets: Union[UnetConfig, Sequence[UnetConfig]], *,
                  text_encoder_name: str, image_sizes: Union[int, Sequence[int]],
                  text_embed_dim: Optional[int] = None, channels: int = 3,
                  timesteps: Union[int, Sequence[int]] = 1000, cond_drop_prob: float = 0.1,
                  loss_type: str = "l2", lowres_sample_noise_level: float = 0.2,
-                 dynamic_thresholding_percentile: float = 0.9, auto_normalize_img: bool = True,
+                 auto_normalize_img: bool = True, dynamic_thresholding_percentile: float = 0.9,
+                 only_train_unet_number: Optional[int] = None,
                  min_snr_gamma: Optional[float] = None, offset_noise_scale: float = 0.0,
-                 dtype: torch.dtype = torch.float32, param_dtype: Optional[torch.dtype] = None,
-                 device="cuda"):
+                 dtype: torch.dtype = torch.float32, remat: bool = False,
+                 param_dtype: Optional[torch.dtype] = None, device="cuda"):
         self.loss_fn = _loss_fn(loss_type)
         self.per_sample_loss_fn = _per_sample_loss_fn(loss_type)
         self.min_snr_gamma: Optional[float] = None
@@ -154,7 +166,8 @@ class Imagen:
             cfg.cast_model_parameters(lowres_cond=i != 0, text_embed_dim=self.text_embed_dim,
                                       channels=channels, channels_out=channels)
             for i, cfg in enumerate(configs)]
-        self.unets = torch.nn.ModuleList(UnetModel(c, dtype, param_dtype)
+        self.only_train_unet_number = only_train_unet_number
+        self.unets = torch.nn.ModuleList(UnetModel(c, dtype, param_dtype, remat=remat)
                                          for c in self.unet_configs)
         self.unets.to(self.device).eval()
         self.image_sizes = cast_tuple(image_sizes)
@@ -189,6 +202,20 @@ class Imagen:
     @property
     def num_unets(self) -> int:
         return len(self.unets)
+
+    def state_dict(self) -> dict:
+        """{'unet_0': state_dict, ...}, every U-Net's parameters (the JAX
+        ``Imagen.state_dict`` shim, ``minimagen_tpu/models/imagen.py:280``)."""
+        return {f"unet_{i}": unet.state_dict() for i, unet in enumerate(self.unets)}
+
+    def load_state_dict(self, params: dict) -> None:
+        """Load {'unet_0': state_dict, ...}: exactly one entry per U-Net,
+        every key matched."""
+        want = {f"unet_{i}" for i in range(self.num_unets)}
+        if set(params) != want:
+            raise ValueError(f"expected keys {sorted(want)}, got {sorted(params)}")
+        for i, unet in enumerate(self.unets):
+            unet.load_state_dict(params[f"unet_{i}"], strict=True)
 
     def encode_text(self, texts: List[str]):
         if self.text_encoder is None:
@@ -663,7 +690,10 @@ class Imagen:
         cascade) on [0, 1] NHWC `images` and their captions or encodings."""
         if self.num_unets > 1 and unet_number is None:
             raise ValueError(f"pass unet_number, 1 to {self.num_unets}, to train a cascade")
-        stage = default(unet_number, 1) - 1
+        unet_number = default(unet_number, 1)
+        if self.only_train_unet_number is not None and self.only_train_unet_number != unet_number:
+            raise ValueError(f"you can only train on unet #{self.only_train_unet_number}")
+        stage = unet_number - 1
         if texts is not None and text_embeds is None and len(texts) != len(images):
             raise ValueError("the number of captions does not match the number of images")
         text_embeds, text_masks = self._text_inputs(texts, text_embeds, text_masks)

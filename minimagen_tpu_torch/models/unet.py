@@ -19,6 +19,7 @@ from typing import Any, ClassVar, Dict, List, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.helpers import cast_tuple, default
 from .layers import (
@@ -154,10 +155,11 @@ class UnetModel(nn.Module):
     use. Images are NHWC."""
 
     def __init__(self, config: UnetConfig, dtype: torch.dtype = torch.float32,
-                 param_dtype: Optional[torch.dtype] = None):
+                 param_dtype: Optional[torch.dtype] = None, remat: bool = False):
         super().__init__()
         cfg = self.config = config
         self.dtype = dtype
+        self.remat = remat
         cond_dim, tcd = cfg.resolved_cond_dim, cfg.time_cond_dim
 
         for prefix in ("to_", "to_lowres_") if cfg.lowres_cond else ("to_",):
@@ -223,6 +225,16 @@ class UnetModel(nn.Module):
                                            groups=layer_params[0][2])
         self.final_conv = Conv(cfg.dim, cfg.resolved_channels_out, 3, padding=1)
         self.to(default(param_dtype, dtype))
+
+    def _block(self, name: str):
+        """Sub-module `name`; with `remat`, a ResnetBlock or TransformerBlock
+        runs under ``torch.utils.checkpoint`` while gradients are taken (the
+        blocks the JAX U-Net wraps in ``nn.remat``, unet.py:347-353)."""
+        module = getattr(self, name)
+        if not (self.remat and torch.is_grad_enabled()
+                and isinstance(module, (ResnetBlock, TransformerBlock))):
+            return module
+        return lambda *args: checkpoint(module, *args, use_reentrant=False)
 
     def _time_condition(self, time, lowres_noise_times):
         cfg = self.config
@@ -301,7 +313,7 @@ class UnetModel(nn.Module):
         last = len(layer_params) - 1
         mem_eff = cfg.memory_efficient
         skip_scale = 2 ** -0.5
-        block = lambda name: getattr(self, name)  # noqa: E731
+        block = self._block
 
         if encoder_cache is not None:
             # the up path pops from the list: take a fresh one each reuse
@@ -325,12 +337,12 @@ class UnetModel(nn.Module):
                     x = block(f"down{ind}_post")(x)
         cache = (x, tuple(hiddens)) if return_encoder_cache else None
 
-        x = self.mid_block1(x, t, c)
+        x = block("mid_block1")(x, t, c)
         if cfg.attend_at_middle:
             b, h, w, ch = x.shape
             tokens = x.reshape(b, h * w, ch)
             x = (tokens + self.mid_attn(tokens)).reshape(b, h, w, ch)
-        x = self.mid_block2(x, t, c)
+        x = block("mid_block2")(x, t, c)
 
         for rev, (_, nblocks, _, attn, _) in enumerate(reversed(layer_params)):
             x = torch.cat([x, hiddens.pop() * skip_scale], dim=-1)
@@ -343,7 +355,7 @@ class UnetModel(nn.Module):
             if rev != last or mem_eff:
                 x = block(f"up{rev}_upsample")(x)
 
-        x = self.final_res_block(x, t)
+        x = block("final_res_block")(x, t)
         out = self.final_conv(x).float()
         return (out, cache) if return_encoder_cache else out
 

@@ -1,90 +1,224 @@
-"""Training on one device (counterpart of ``minimagen_tpu/parallel/mesh.py:250-367``
-and of ``examples/train_flagship_tpu.py --model lite``).
+"""Training on one device and the training harness (counterpart of
+``minimagen_tpu/parallel/mesh.py:250-447`` at one device, of
+``minimagen_tpu/training.py`` and of ``examples/train_flagship_tpu.py
+--model lite``).
+
+The step:
 
 - :func:`make_optimizer`: global-norm clipping at 50, then Adam (eps 1e-8),
-  as the JAX package's optax chain. ``torch.optim.Adam``'s update is optax
-  ``adam``'s arithmetic (bias corrections folded into the step size and the
-  denominator); the clip scales every gradient by ``min(1, 50 / norm)``, the
-  norm taken in float32 over all of them, as optax's ``clip_by_global_norm``.
+  optionally inside gradient accumulation and with a bfloat16 first moment,
+  in optax's arithmetic (:class:`ClippedAdam`).
 - :class:`TrainState` and :func:`create_train_state`: the step counter, the
-  float32 master parameters of every U-Net, the optimizer and, optionally, an
-  exponential moving average of the parameters held as a real float32 copy.
+  float32 master parameters of every U-Net, the optimizer's state and,
+  optionally, an exponential moving average held as a real float32 copy.
 - :func:`make_train_step`: one step sums every stage's loss, runs one
-  backward pass, clips, steps Adam and updates the EMA. Its random draws come
-  from a generator seeded by the caller's seed with the global step folded
-  in, so a run repeats exactly.
-- :func:`get_model_params` and :func:`get_default_args`: the U-Net and
-  Imagen parameters of a ``parameters/`` directory and of a preset
-  (``minimagen_tpu/training.py:241-275``); ``generate.default_imagen``
-  builds a cascade from them.
+  backward pass, then the optimizer and the EMA. Its random draws come from
+  a generator seeded by the caller's seed with the global step folded in,
+  so a run repeats exactly. :func:`make_eval_step`: the per-stage losses
+  without gradients.
+- :func:`device_prefetch`: the next batches copied to the card on a side
+  stream while the current step runs.
 - :func:`train_lite`: the lite cascade trained from a fresh flax-style init
   on the synthetic set with the committed run's recipe (``assets/lite_ckpt/
-  meta.json``: its held-out combos, 512 items, batch 16, lr 1e-4, EMA 0.9995)
-  but one difference: Adam's first moment stays float32, where that run kept
-  it in bf16 (``examples/train_flagship_tpu.py`` always passes ``--mu_bf16``).
+  meta.json``: its held-out combos, 512 items, batch 16, lr 1e-4, EMA 0.9995;
+  that run kept Adam's first moment in bf16, ``mu_dtype=torch.bfloat16``
+  here; the default is float32).
 
-Not ported yet: the ``MinimagenTrain`` harness, checkpoint writing, gradient
-accumulation (``optax.MultiSteps``) and a bf16 first moment.
+The harness (``minimagen_tpu/training.py:93-612``): the reference's flags
+(:func:`get_minimagen_parser`), the training directory
+(:func:`create_directory`, :func:`save_training_info`), restart and test
+parameters, the configs of a ``parameters/`` directory and of a preset
+(:func:`get_model_params`, :func:`get_default_args`,
+:func:`imagen_config_dict`), and :func:`MinimagenTrain`: epochs, a
+checkpoint and validation every ``CHCKPT_NUM`` batches, best-validation
+U-Nets in ``state_dicts/``, full-state dumps in ``tmp/`` from which a
+restart resumes, a per-batch watchdog and crash dumps. Checkpoints are the
+JAX package's flax-msgpack files (``checkpoint.py``). Not ported: the Orbax
+checkpoints and the meshes of multi-device runs.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import hashlib
 import inspect
 import json
 import os
+import signal
+import threading
 import time
+from argparse import ArgumentParser
+from contextlib import contextmanager
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from .data.collate import MinimagenCollator
-from .data.dataset import SyntheticCaptionedImages
+from .checkpoint import load_train_state, save_train_state, save_unet_checkpoint
+from .data.collate import DataLoader, MinimagenCollator, get_minimagen_dl_opts  # noqa: F401
+from .data.dataset import ConceptualCaptions, SyntheticCaptionedImages  # noqa: F401
 from .generate import LITE_CKPT_DIR, lite_imagen
 from .models.imagen import Imagen
 from .models.unet import UnetConfig
+from .utils.profiling import StepTimer
+from .utils.progress import ProgressBar
 
 GRAD_CLIP_NORM = 50.0
 DATA_SEED = 42  # the seed train_lite's steps fold their step into
+MU_DTYPES = {"f32": None, "bf16": torch.bfloat16}  # --MU_DTYPE / --mu-dtype choices
+
+
+@dataclass
+class AdamState:
+    """optax's ``ScaleByAdamState`` and, under accumulation, its
+    ``MultiStepsState``: `count` the Adam updates made, `mu` (in the
+    optimizer's `mu_dtype`) and `nu` one tensor per parameter; `mini_step`,
+    `gradient_step` and `acc_grads` (the running mean of the mini-steps'
+    gradients, float32) only where ``accum_iter > 1``. The counters are host
+    ints: a step needs no read from the card."""
+
+    count: int
+    mu: List[torch.Tensor]
+    nu: List[torch.Tensor]
+    mini_step: int = 0
+    gradient_step: int = 0
+    acc_grads: Optional[List[torch.Tensor]] = None
 
 
 @dataclass(frozen=True)
 class ClippedAdam:
-    """Global-norm clipping followed by Adam (b1 0.9, b2 0.999, eps 1e-8, as
-    optax's defaults); :meth:`init` binds it to the parameters as a
-    ``torch.optim.Adam``."""
+    """Global-norm clipping at 50 followed by Adam (b1 0.9, b2 0.999, eps
+    1e-8), optionally inside ``optax.MultiSteps(every_k=accum_iter)``: the
+    JAX package's ``make_optimizer`` (``minimagen_tpu/parallel/mesh.py:262-277``)
+    in optax's arithmetic, op for op (``optax/_src/transform.py::scale_by_adam``,
+    ``clipping.py::clip_by_global_norm``, ``wrappers.py::MultiSteps``):
+
+    - the clip divides by the global norm and multiplies by 50, where the
+      norm reaches 50;
+    - mu is updated in float32 from the stored mu and the float32 gradient;
+    - the update is computed from that unrounded mu; only then is mu rounded
+      to `mu_dtype` for storage;
+    - under accumulation the gradients are averaged over `accum_iter`
+      mini-steps (Welford's ``acc + (g - acc) / (n + 1)``), the clip applies
+      to the average, and the parameters move on every `accum_iter`-th call
+      only.
+
+    Each operation runs over every parameter at once (``torch._foreach_*``).
+    """
 
     lr: float
+    accum_iter: int = 1
+    mu_dtype: Optional[torch.dtype] = None
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
 
-    def init(self, params: Sequence[torch.nn.Parameter]) -> torch.optim.Adam:
-        return torch.optim.Adam(params, lr=self.lr, betas=(0.9, 0.999), eps=1e-8)
+    def init(self, params: Sequence[torch.Tensor]) -> AdamState:
+        mu = [torch.zeros_like(p, dtype=self.mu_dtype or p.dtype) for p in params]
+        nu = [torch.zeros_like(p) for p in params]
+        acc = ([torch.zeros_like(p, dtype=torch.float32) for p in params]
+               if self.accum_iter > 1 else None)
+        return AdamState(count=0, mu=mu, nu=nu, acc_grads=acc)
 
-    def clip(self, params: Sequence[torch.nn.Parameter]) -> torch.Tensor:
-        """Scale the gradients by min(1, GRAD_CLIP_NORM / norm), the global
-        norm in float32 (optax's ``clip_by_global_norm``, without a host
-        sync); returns the norm before clipping."""
-        grads = [p.grad for p in params if p.grad is not None]
-        norm = torch.linalg.vector_norm(torch.stack(
-            [n.float() for n in torch._foreach_norm(grads)]))
-        scale = (GRAD_CLIP_NORM / norm).clamp(max=1.0)
-        for dtype in {g.dtype for g in grads}:
-            torch._foreach_mul_([g for g in grads if g.dtype == dtype], scale.to(dtype))
+    @staticmethod
+    def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The float32 norm over every gradient, without a host sync."""
+        return torch.linalg.vector_norm(torch.stack(
+            [n.float() for n in torch._foreach_norm(list(grads))]))
+
+    def clip_grads(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        """In place, optax's clip: g where the norm is below 50, else
+        (g / norm) * 50; returns the norm."""
+        norm = self.global_norm(grads)
+        below = norm < GRAD_CLIP_NORM
+        one = torch.ones((), device=norm.device)
+        torch._foreach_div_(grads, torch.where(below, one, norm))
+        torch._foreach_mul_(grads, torch.where(below, one, one * GRAD_CLIP_NORM))
         return norm
 
+    def clip(self, params: Sequence[torch.nn.Parameter]) -> torch.Tensor:
+        """:meth:`clip_grads` of the parameters' gradients."""
+        return self.clip_grads([p.grad for p in params if p.grad is not None])
 
-def make_optimizer(lr: float) -> ClippedAdam:
-    """Adam + global-norm clip 50 (the JAX package's ``make_optimizer``)."""
-    return ClippedAdam(lr)
+    def _adam(self, params: List[torch.Tensor], grads: List[torch.Tensor],
+              state: AdamState) -> None:
+        """One clipped Adam update of `params` from float32 `grads` (clipped
+        in place). The moments are updated in place; the update holds one
+        float32 list the size of the parameters (the denominator) and, for a
+        bfloat16 first moment, its float32 copy."""
+        self.clip_grads(grads)
+        # mu = (1 - b1) g + b1 mu as a fused multiply-add on the gradient term
+        # (XLA contracts it so, and ``add(alpha=)`` is one here), b1 mu taken
+        # in float32 with b1 rounded to mu's dtype (JAX's weakly typed 0.9
+        # becomes bf16 0.8984375): a bf16 moment gets optax's bits.
+        # nu = (1 - b2) g^2 + b2 nu
+        b1 = float(torch.tensor(self.b1, dtype=state.mu[0].dtype))
+        mu = state.mu if state.mu[0].dtype == torch.float32 else [m.float() for m in state.mu]
+        torch._foreach_mul_(mu, b1)
+        torch._foreach_add_(mu, grads, alpha=1.0 - self.b1)
+        torch._foreach_mul_(state.nu, self.b2)
+        torch._foreach_addcmul_(state.nu, grads, grads, value=1.0 - self.b2)
+        state.count += 1
+        one = np.float32(1.0)
+        bc1 = float(one - np.float32(self.b1) ** np.float32(state.count))
+        bc2 = float(one - np.float32(self.b2) ** np.float32(state.count))
+        denom = torch._foreach_div(state.nu, bc2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        # p - lr (mu / bc1) / denom, as p + (-lr / bc1) mu / denom
+        torch._foreach_addcdiv_(params, mu, denom, value=-self.lr / bc1)
+        if mu is not state.mu:  # rounded only now, for storage
+            for dst, src in zip(state.mu, mu):
+                dst.copy_(src)
+
+    @torch.no_grad()
+    def step(self, params: Sequence[torch.nn.Parameter], state: AdamState) -> bool:
+        """Update `params` in place from their ``.grad`` (None counts as
+        zero, as optax updates every leaf); returns whether they moved (False
+        on the mini-steps of an accumulation)."""
+        params = list(params)
+        grads = [torch.zeros_like(p, dtype=torch.float32) if p.grad is None else p.grad.float()
+                 for p in params]
+        if self.accum_iter <= 1:
+            self._adam(params, grads, state)
+            return True
+        acc = state.acc_grads
+        delta = torch._foreach_sub(grads, acc)
+        torch._foreach_div_(delta, state.mini_step + 1)
+        torch._foreach_add_(acc, delta)
+        if state.mini_step < self.accum_iter - 1:
+            state.mini_step += 1
+            return False
+        self._adam(params, acc, state)  # acc is clipped in place, then zeroed
+        torch._foreach_zero_(acc)
+        state.mini_step = 0
+        state.gradient_step += 1
+        return True
+
+
+def make_optimizer(lr: float, accum_iter: int = 1,
+                   mu_dtype: Optional[torch.dtype] = None) -> ClippedAdam:
+    """Adam + global-norm clip 50, with `accum_iter`-step gradient
+    accumulation and Adam's first moment in `mu_dtype` (default: the
+    parameters' dtype): the JAX package's ``make_optimizer``."""
+    return ClippedAdam(lr, accum_iter, mu_dtype)
 
 
 @dataclass
 class TrainState:
+    """The step counter, every U-Net's parameters (stage by stage, in module
+    order), the optimizer's state, the EMA (a float32 copy, or None) and
+    each parameter's (stage, name), the key its checkpoints use. `torn` is
+    True while an update is applied, and stays True if one failed halfway:
+    the state is then no step of the run (:func:`applying_update`)."""
+
     step: int
     params: List[torch.nn.Parameter]
-    opt_state: torch.optim.Adam
+    opt_state: AdamState
     ema_params: Optional[List[torch.Tensor]] = None
+    names: List[Tuple[int, str]] = dataclasses.field(default_factory=list)
+    torn: bool = False
 
 
 def unet_parameters(imagen: Imagen) -> List[torch.nn.Parameter]:
@@ -97,8 +231,36 @@ def create_train_state(imagen: Imagen, optimizer: ClippedAdam, *, ema: bool = Fa
     copy of them for the moving average."""
     params = unet_parameters(imagen)
     ema_params = [p.detach().float().clone() for p in params] if ema else None
+    names = [(i, name) for i, unet in enumerate(imagen.unets) for name, _ in unet.named_parameters()]
     return TrainState(step=0, params=params, opt_state=optimizer.init(params),
-                      ema_params=ema_params)
+                      ema_params=ema_params, names=names)
+
+
+class _UpdateInProgress:
+    """Whether an update is being applied, and the watchdog's message if it
+    fired meanwhile (signal handlers run on the main thread, between two
+    Python bytecodes: a flag is enough)."""
+
+    active = False
+    deferred: Optional[str] = None
+
+
+@contextmanager
+def applying_update(state: TrainState):
+    """The block that moves `state` to its next step. A watchdog timeout
+    (:class:`_Timeout`) that fires inside it is raised once the block has
+    ended, never between its in-place writes; `state.torn` is set for the
+    block and stays set if the block raises."""
+    _UpdateInProgress.active, _UpdateInProgress.deferred = True, None
+    state.torn = True
+    try:
+        yield
+        state.torn = False
+    finally:
+        _UpdateInProgress.active = False
+    if _UpdateInProgress.deferred is not None:
+        message, _UpdateInProgress.deferred = _UpdateInProgress.deferred, None
+        raise BatchTimeoutError(message)
 
 
 def fold_in(seed: int, step: int) -> int:
@@ -115,7 +277,8 @@ def make_train_step(imagen: Imagen, optimizer: ClippedAdam, ema_decay: float = 0
     injected ``stage_loss`` draws (times, lowres_aug_times, noise,
     lowres_noise, keep_mask), replaces the generator's. The EMA update is
     ``ema * d + p * (1 - d)`` in float32, with d and 1 - d rounded to
-    float32 as the JAX package computes them."""
+    float32 as the JAX package computes them. The optimizer, the EMA and
+    the step counter are applied inside :func:`applying_update`."""
     d32 = np.float32(ema_decay)
     decay, one_minus = float(d32), float(np.float32(1.0) - d32)
 
@@ -125,22 +288,98 @@ def make_train_step(imagen: Imagen, optimizer: ClippedAdam, ema_decay: float = 0
         losses = [imagen.stage_loss(i, batch["image"], batch["encoding"], batch["mask"],
                                     generator=gen, **(draws[i] if draws else {}))
                   for i in range(imagen.num_unets)]
-        state.opt_state.zero_grad(set_to_none=True)
+        for p in state.params:
+            p.grad = None
         torch.stack(losses).sum().backward()
-        for p in state.params:  # optax updates every leaf, gradient or not
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        optimizer.clip(state.params)
-        state.opt_state.step()
-        if state.ema_params is not None:
-            with torch.no_grad():
-                torch._foreach_mul_(state.ema_params, decay)
-                torch._foreach_add_(state.ema_params, [p.detach().float() for p in state.params],
-                                    alpha=one_minus)
-        state.step += 1
+        with applying_update(state):
+            optimizer.step(state.params, state.opt_state)
+            if state.ema_params is not None:
+                with torch.no_grad():
+                    torch._foreach_mul_(state.ema_params, decay)
+                    torch._foreach_add_(state.ema_params,
+                                        [p.detach().float() for p in state.params],
+                                        alpha=one_minus)
+            state.step += 1
         return state, torch.stack([loss.detach() for loss in losses])
 
     return step_fn
+
+
+def make_eval_step(imagen: Imagen):
+    """fn(batch, seed) -> the per-stage losses (num_unets,) without
+    gradients (``mesh.py:431-447``): each stage's ``stage_loss`` with its
+    draws from one generator seeded `seed`, in the documented order, stage
+    by stage."""
+
+    @torch.no_grad()
+    def eval_fn(batch: Dict[str, torch.Tensor], seed: int = 0) -> torch.Tensor:
+        gen = torch.Generator(device=imagen.device).manual_seed(int(seed))
+        return torch.stack([imagen.stage_loss(i, batch["image"], batch["encoding"],
+                                              batch["mask"], generator=gen)
+                            for i in range(imagen.num_unets)])
+
+    return eval_fn
+
+
+def device_prefetch(batches, device, size: int = 2) -> Iterator:
+    """Batches of host numpy arrays -> dicts of tensors on `device`, `size`
+    batches ahead (the one-device branch of ``mesh.py:65-106``).
+
+    On a CUDA device each batch is copied into pinned host memory and sent
+    with ``non_blocking=True`` on a side stream, so the copy overlaps the
+    step running on the current stream; the current stream waits on the
+    copy's event before the batch is handed out, and the tensors are marked
+    as used on it for the caching allocator. There is no synchronous
+    fallback: pinning or the copy raises. On the CPU the arrays become
+    tensors without a copy. None batches (nothing left after the collator
+    dropped failed items) pass through; a loader's exception is raised once
+    the batches before it are handed out."""
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    stream = torch.cuda.Stream(device) if cuda else None
+
+    def put(batch):
+        if not batch:
+            return batch, None
+        host = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
+        if not cuda:
+            return host, None
+        pinned = {k: v.pin_memory() for k, v in host.items()}
+        with torch.cuda.stream(stream):
+            moved = {k: v.to(device, non_blocking=True) for k, v in pinned.items()}
+            event = torch.cuda.Event()
+            event.record(stream)
+        return moved, (event, pinned)  # the pinned buffers live until the copy is waited on
+
+    pending: collections.deque = collections.deque()
+    it = iter(batches)
+    error: Optional[BaseException] = None
+    exhausted = False
+
+    def pull():
+        nonlocal error, exhausted
+        if exhausted or error is not None:
+            return
+        try:
+            pending.append(put(next(it)))
+        except StopIteration:
+            exhausted = True
+        except Exception as e:  # noqa: BLE001 - raised after the queued batches
+            error = e
+
+    while len(pending) < size and not exhausted and error is None:
+        pull()
+    while pending:
+        batch, copy = pending.popleft()
+        if copy is not None:
+            current = torch.cuda.current_stream(device)
+            current.wait_event(copy[0])
+            for v in batch.values():
+                v.record_stream(current)
+        pull()
+        yield batch
+    if error is not None:
+        raise error
 
 
 def stage_batches(num_items: int, batch: int, size: int, max_length: int, encoder_name: str,
@@ -168,14 +407,15 @@ class LiteRun:
 
 
 def train_lite(steps: int, batch: int = 16, *, items: int = 512, seed: int = 0,
-               device="cuda") -> LiteRun:
+               mu_dtype: Optional[torch.dtype] = None, device="cuda") -> LiteRun:
     """Train the lite cascade from a fresh flax-style init (from `seed`) for
     `steps` steps with the committed run's recipe (``assets/lite_ckpt/
     meta.json``): the synthetic set without its held-out combos, `items`
     items staged once as items // batch batches and cycled in order,
     clip-50 Adam at its lr, its EMA decay, float32 master parameters and
-    bf16 compute. Adam's first moment is float32; the committed run kept it
-    in bf16. Returns the per-step losses of both stages."""
+    bf16 compute. Adam's first moment is in `mu_dtype` (default float32; the
+    committed run kept it in bf16). Returns the per-step losses of both
+    stages."""
     with open(os.path.join(LITE_CKPT_DIR, "meta.json")) as f:
         config = json.load(f)["config"]
     held = set(config["held_combos"])
@@ -187,7 +427,7 @@ def train_lite(steps: int, batch: int = 16, *, items: int = 512, seed: int = 0,
     stacked = stage_batches(items, batch, imagen.image_sizes[-1], config["max_length"],
                             config["encoder"], combos=combos, device=device)
     n_batches = stacked["image"].shape[0]
-    optimizer = make_optimizer(config["lr"])
+    optimizer = make_optimizer(config["lr"], mu_dtype=mu_dtype)
     state = create_train_state(imagen, optimizer, ema=config["ema"] > 0)
     step_fn = make_train_step(imagen, optimizer, ema_decay=config["ema"])
     sync = torch.cuda.synchronize if imagen.device.type == "cuda" else (lambda: None)
@@ -236,6 +476,396 @@ def get_default_args(obj) -> Dict[str, Any]:
             if v.default is not inspect.Parameter.empty}
 
 
+def imagen_config_dict(imagen_kwargs: Dict[str, Any]) -> Dict[str, Any]:
+    """An Imagen kwargs dict completed with the constructor's defaults, as a
+    training directory's ``imagen_params_*.json`` holds it (the same keys,
+    order and values as the JAX package writes; the compute options dtype,
+    remat, param_dtype and device are not part of it)."""
+    skip = ("unets", "dtype", "remat", "param_dtype", "device")
+    defaults = {k: v for k, v in get_default_args(Imagen).items() if k not in skip}
+    out = {k: v for k, v in {**defaults, **imagen_kwargs}.items() if k not in skip}
+    if isinstance(out.get("image_sizes"), tuple):
+        out["image_sizes"] = list(out["image_sizes"])
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# the harness: flags and the training directory (minimagen_tpu/training.py)   #
+# --------------------------------------------------------------------------- #
+def get_minimagen_parser() -> ArgumentParser:
+    """The reference's 15 training flags with their defaults, and ``--EMA``
+    (decay of the weights' moving average; 0 turns it off)."""
+    parser = ArgumentParser()
+    add = parser.add_argument
+    add("-p", "--PARAMETERS", dest="PARAMETERS", default=None, type=str,
+        help="Parameters directory to load Imagen from")
+    add("-n", "--NUM_WORKERS", dest="NUM_WORKERS", default=0, type=int,
+        help="Number of workers for DataLoader")
+    add("-b", "--BATCH_SIZE", dest="BATCH_SIZE", default=2, type=int, help="Batch size")
+    add("-mw", "--MAX_NUM_WORDS", dest="MAX_NUM_WORDS", default=64, type=int,
+        help="Maximum number of words allowed in a caption")
+    add("-s", "--IMG_SIDE_LEN", dest="IMG_SIDE_LEN", default=128, type=int,
+        help="Side length of square Imagen output images")
+    add("-e", "--EPOCHS", dest="EPOCHS", default=5, type=int, help="Number of training epochs")
+    add("-t5", "--T5_NAME", dest="T5_NAME", default="t5_base", type=str,
+        help="Name of T5 encoder to use")
+    add("-f", "--TRAIN_VALID_FRAC", dest="TRAIN_VALID_FRAC", default=0.9, type=float,
+        help="Fraction of dataset to use for training (vs. validation)")
+    add("-t", "--TIMESTEPS", dest="TIMESTEPS", default=1000, type=int,
+        help="Number of timesteps in Diffusion process")
+    add("-lr", "--OPTIM_LR", dest="OPTIM_LR", default=0.0001, type=float,
+        help="Learning rate for Adam optimizer")
+    add("-ai", "--ACCUM_ITER", dest="ACCUM_ITER", default=1, type=int,
+        help="Number of batches for gradient accumulation")
+    add("-cn", "--CHCKPT_NUM", dest="CHCKPT_NUM", default=500, type=int,
+        help="Checkpointing batch number interval")
+    add("-vn", "--VALID_NUM", dest="VALID_NUM", default=None, type=int,
+        help="Number of validation images to use. If None, uses full amount from train/valid split")
+    add("-rd", "--RESTART_DIRECTORY", dest="RESTART_DIRECTORY", default=None, type=str,
+        help="Training directory to resume training from if restarting.")
+    add("-test", "--TESTING", dest="TESTING", action="store_true",
+        help="Whether to test with smaller dataset")
+    parser.set_defaults(TESTING=False)
+    add("--EMA", dest="EMA", type=float, default=0.0,
+        help="EMA decay for model weights (e.g. 0.9999); 0 disables")
+    return parser
+
+
+def load_restart_training_parameters(args, justparams: bool = False):
+    """Restore MAX_NUM_WORDS, IMG_SIDE_LEN, T5_NAME and TIMESTEPS from a run's
+    ``parameters/training_*.txt`` (the restart directory's, or
+    ``args.PARAMETERS`` with `justparams`)."""
+    params = args.PARAMETERS if justparams else os.path.join(args.RESTART_DIRECTORY, "parameters")
+    file = [f for f in os.listdir(params) if f.startswith("training_")][0]
+    with open(os.path.join(params, file)) as f:
+        lines = f.readlines()
+    keep = ("MAX_NUM_WORDS", "IMG_SIDE_LEN", "T5_NAME", "TIMESTEPS")
+    restored: Dict[str, Any] = {}
+    for line in lines:
+        if not any(line.startswith(f"--{k}") for k in keep):
+            continue
+        key, _, value = line.partition("=")
+        value = value.rstrip("\n")
+        try:
+            restored[key[2:]] = int(value)
+        except ValueError:
+            restored[key[2:]] = value
+    args.__dict__ = {**args.__dict__, **restored}
+    return args
+
+
+def load_testing_parameters(args):
+    """The reference's small test values."""
+    args.__dict__ = {**args.__dict__, **dict(
+        BATCH_SIZE=2, MAX_NUM_WORDS=32, IMG_SIDE_LEN=128, EPOCHS=2, T5_NAME="t5_small",
+        TRAIN_VALID_FRAC=0.5, TIMESTEPS=25, OPTIM_LR=0.0001)}
+    return args
+
+
+def create_directory(dir_path: str):
+    """Make `dir_path` with ``parameters/``, ``state_dicts/`` and ``tmp/``;
+    returns a context manager that changes into it (or a subdirectory) and
+    back."""
+    original_dir = os.getcwd()
+    dir_path = os.path.abspath(dir_path)
+    if not os.path.exists(dir_path):
+        for sub in ("parameters", "state_dicts", "tmp"):
+            os.makedirs(os.path.join(dir_path, sub))
+
+    @contextmanager
+    def cm(subpath: str = ""):
+        os.chdir(os.path.join(dir_path, subpath))
+        try:
+            yield
+        finally:
+            os.chdir(original_dir)
+
+    return cm
+
+
+def get_model_size(imagen: Imagen) -> float:
+    """MB of the U-Nets' parameters and the diffusion schedules' buffers."""
+    param_bytes = sum(p.numel() * p.element_size() for p in unet_parameters(imagen))
+    buffer_bytes = sum(t.numel() * t.element_size()
+                       for sched in (*imagen.noise_schedulers, imagen.lowres_noise_schedule)
+                       for t in vars(sched).values() if isinstance(t, torch.Tensor))
+    return (param_bytes + buffer_bytes) / 1024 ** 2
+
+
+def save_training_info(args, timestamp: str, unets_params: List[dict], imagen_params: dict,
+                       model_size: float, training_dir) -> None:
+    """Write ``parameters/training_parameters_<ts>.txt`` (every flag), the
+    model size to ``training_progess.txt`` [sic, the reference's name] and
+    the U-Net and Imagen JSON configs."""
+    with training_dir("parameters"):
+        with open(f"training_parameters_{timestamp}.txt", "w") as f:
+            for k in args.__dict__.keys():
+                f.write(f"--{k}={getattr(args, k)}\n")
+    with training_dir():
+        with open(PROGRESS_FILE, "a") as f:
+            if getattr(args, "RESTART_DIRECTORY", None) is not None:
+                f.write(f"STARTED FROM CHECKPOINT {args.RESTART_DIRECTORY}\n")
+            f.write(f"model size: {model_size:.3f}MB\n\n")
+    with training_dir("parameters"):
+        for idx, param in enumerate(unets_params):
+            with open(f"unet_{idx}_params_{timestamp}.json", "w") as f:
+                json.dump(param, f, indent=4)
+        with open(f"imagen_params_{timestamp}.json", "w") as f:
+            json.dump(imagen_params, f, indent=4)
+
+
+# --------------------------------------------------------------------------- #
+# the training loop (minimagen_tpu/training.py:357-612)                        #
+# --------------------------------------------------------------------------- #
+PROGRESS_FILE = "training_progess.txt"  # [sic], the reference's file name
+CKPT_EXT = "ckpt"
+TRAIN_STATE_FILE = "train_state.ckpt"
+ORBAX_STATE_DIR = "train_state_orbax"  # the JAX package's mesh-run dumps
+
+
+class BatchTimeoutError(Exception):
+    """A training batch exceeded the watchdog's time (skipped, not fatal)."""
+
+
+class _Timeout:
+    """Per-batch SIGALRM watchdog: raises :class:`BatchTimeoutError` if the
+    block runs longer than `seconds` (once the update has ended, if one is
+    being applied: :func:`applying_update`). Off when `seconds` is falsy, off the
+    main thread, or where there is no SIGALRM."""
+
+    def __init__(self, seconds: Optional[int]):
+        self.seconds = seconds
+        self.active = bool(seconds) and hasattr(signal, "SIGALRM") and (
+            threading.current_thread() is threading.main_thread())
+
+    def _handler(self, signum, frame):
+        message = f"batch exceeded {self.seconds}s watchdog"
+        if _UpdateInProgress.active:  # raised by applying_update once the update ends
+            _UpdateInProgress.deferred = message
+            return
+        raise BatchTimeoutError(message)
+
+    def __enter__(self):
+        if self.active:
+            self._prev = signal.signal(signal.SIGALRM, self._handler)
+            signal.alarm(self.seconds)
+        return self
+
+    def __exit__(self, *exc):
+        if self.active:
+            signal.alarm(0)
+            signal.signal(signal.SIGALRM, self._prev)
+        return False
+
+
+def _maybe_len(loader) -> Optional[int]:
+    try:
+        return len(loader)
+    except TypeError:
+        return None
+
+
+@contextmanager
+def swapped_params(state: TrainState):
+    """The U-Nets run with the EMA weights inside (the raw parameters put
+    back after); without an EMA, unchanged."""
+    if state.ema_params is None:
+        yield
+        return
+    with torch.no_grad():
+        raw = [p.detach().clone() for p in state.params]
+        torch._foreach_copy_([p.data for p in state.params], state.ema_params)
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            torch._foreach_copy_([p.data for p in state.params], raw)
+
+
+def MinimagenTrain(timestamp, args, unets, imagen: Imagen, train_dataloader, valid_dataloader,
+                   training_dir, optimizer: Optional[ClippedAdam] = None, timeout: int = 60,
+                   mesh=None, seed: int = 0) -> Dict[str, Any]:
+    """Train every U-Net of `imagen` over ``args.EPOCHS`` epochs of
+    `train_dataloader` (the reference's ``MinimagenTrain``; one summed step
+    for all stages per batch).
+
+    Every ``args.CHCKPT_NUM`` batches (batch 0 included) the latest weights
+    (the EMA when ``args.EMA`` > 0) and the full train state go to ``tmp/``,
+    every stage is validated on `valid_dataloader` and a stage that beats
+    its best validation loss is written to ``state_dicts/``; the progress
+    goes to ``training_progess.txt``. A restart (``args.RESTART_DIRECTORY``)
+    resumes from its ``tmp/train_state.ckpt``: parameters, Adam's moments,
+    the step and the EMA. A batch of which the collator left nothing is
+    skipped; a batch hung past `timeout` seconds is skipped (an epoch's
+    first batch is exempt: the run's first builds the kernels); a failing
+    batch dumps the state to ``tmp/`` and training goes on, but where the
+    failure tore the update halfway (``TrainState.torn``) the last dump is
+    restored instead (and with none to restore, the run raises); a failing
+    loader dumps the state and ends the epoch. The final state is dumped
+    too.
+
+    :param unets: the U-Net configs (the reference's signature; `imagen`'s
+        are used).
+    :param optimizer: default: clip-50 Adam at ``args.OPTIM_LR`` with
+        ``args.ACCUM_ITER`` accumulation.
+    :param mesh: must be None (multi-device training is not ported).
+    :return: {'best_valid_loss', 'history', 'final_step', 'perf',
+        'start_step', 'start_adam_count', 'loader_s'}; every loss and
+        timing of the run.
+    """
+    if mesh is not None:
+        raise NotImplementedError("multi-device training (a mesh) is not ported yet")
+    num_unets = imagen.num_unets
+    device = imagen.device
+    optimizer = optimizer if optimizer is not None else make_optimizer(
+        args.OPTIM_LR, getattr(args, "ACCUM_ITER", 1))
+    ema_decay = float(getattr(args, "EMA", 0.0) or 0.0)
+    state = create_train_state(imagen, optimizer, ema=ema_decay > 0.0)
+
+    last_dump: Optional[str] = None  # the full-state file a torn update goes back to
+    restart_dir = getattr(args, "RESTART_DIRECTORY", None)
+    if restart_dir is not None:
+        ts_path = os.path.join(restart_dir, "tmp", TRAIN_STATE_FILE)
+        if os.path.exists(ts_path):
+            load_train_state(ts_path, state)
+            last_dump = os.path.abspath(ts_path)
+            print(f"Restored full train state (step {state.step}) from {ts_path}")
+        elif os.path.isdir(os.path.join(restart_dir, "tmp", ORBAX_STATE_DIR)):
+            raise NotImplementedError(f"{restart_dir}/tmp holds an Orbax (multi-device) dump "
+                                      "only; Orbax checkpoints are not ported yet")
+    start_step, start_count = state.step, state.opt_state.count
+    train_step = make_train_step(imagen, optimizer, ema_decay=ema_decay or 0.9999)
+    eval_step = make_eval_step(imagen)
+
+    def progress(text: str) -> None:
+        with training_dir():
+            with open(PROGRESS_FILE, "a") as f:
+                f.write(text)
+
+    def unet_weights(i: int) -> Dict[str, torch.Tensor]:
+        """U-Net i's validation weights (the EMA when it is kept), by name."""
+        weights = state.ema_params if state.ema_params is not None else state.params
+        return {name: t for (stage, name), t in zip(state.names, weights) if stage == i}
+
+    def dump_tmp() -> None:
+        nonlocal last_dump
+        with training_dir("tmp"):
+            for i in range(num_unets):
+                save_unet_checkpoint(f"unet_{i}_tmp.{CKPT_EXT}", unet_weights(i))
+            save_train_state(TRAIN_STATE_FILE, state)
+            last_dump = os.path.abspath(TRAIN_STATE_FILE)
+
+    def restore_last_dump(error: BaseException) -> None:
+        """After an update that failed halfway: the last full-state dump."""
+        if last_dump is None:
+            raise RuntimeError("an update failed halfway and no full-state dump exists to "
+                               "restore") from error
+        load_train_state(last_dump, state)
+        state.torn = False
+        progress(f"STATE RESTORED FROM {last_dump} (STEP {state.step})\n")
+
+    def validate(epoch_seed: int) -> np.ndarray:
+        running = torch.zeros(num_unets, device=device)
+        n_batches = 0
+        vbar = ProgressBar(total=_maybe_len(valid_dataloader), desc="validation")
+        with swapped_params(state):
+            for vbatch in device_prefetch(valid_dataloader, device):
+                vbar.update()
+                if not vbatch:
+                    continue
+                running += eval_step(vbatch, fold_in(epoch_seed, n_batches))
+                n_batches += 1
+        vbar.close()
+        return running.cpu().numpy().astype(np.float64) / max(n_batches, 1)
+
+    best_loss = np.full(num_unets, 9999999.0)
+    history: List[Dict[str, Any]] = []
+    timer = StepTimer(device)
+    loader_s = 0.0
+    for epoch in range(args.EPOCHS):
+        print(f'\n{"-" * 20} EPOCH {epoch + 1} {"-" * 20}')
+        progress(f'{"-" * 20} EPOCH {epoch + 1} {"-" * 20}\n')
+        epoch_seed = fold_in(seed, epoch)
+        running_train_loss = np.zeros(num_unets)
+        print(f'\n{"-" * 10}Training...{"-" * 10}')
+        batch_iter = device_prefetch(train_dataloader, device)
+        batch_num = -1
+        bar = ProgressBar(total=_maybe_len(train_dataloader), desc=f"epoch {epoch + 1} train")
+        while True:
+            t_fetch = time.perf_counter()
+            try:
+                batch = next(batch_iter)
+            except StopIteration:
+                break
+            except Exception as e:  # noqa: BLE001 - the loader failed: dump, end the epoch
+                progress(f"\n\nDATA LOADER FAILED AT EPOCH {epoch} with exception {e}. "
+                         "MOST RECENT STATE DICTS SAVED TO ./tmp IN TRAINING FOLDER\n")
+                dump_tmp()
+                break
+            loader_s += time.perf_counter() - t_fetch
+            batch_num += 1
+            bar.update()
+            try:
+                if not batch:
+                    continue
+                with _Timeout(timeout if batch_num > 0 else None):  # batch 0: the build
+                    with timer.step():
+                        state, losses = train_step(state, batch, epoch_seed)
+                        losses_np = losses.float().cpu().numpy()
+                running_train_loss += losses_np
+                if batch_num % args.CHCKPT_NUM == 0:
+                    progress(f'{"-" * 10}Checkpoint created at batch number {batch_num}'
+                             f'{"-" * 10}\n')
+                    dump_tmp()
+                    avg_loss = running_train_loss / max(batch_num, 1)
+                    progress(f"U-Nets Avg Train Losses Epoch {epoch + 1} Batch {batch_num}: "
+                             f"{[round(float(i), 3) for i in avg_loss]}\n"
+                             f"U-Nets Batch Train Losses Epoch {epoch + 1} Batch {batch_num}: "
+                             f"{[round(float(i), 3) for i in losses_np]}\n")
+                    print(f'\n{"-" * 10}Validation...{"-" * 10}')
+                    avg_valid = validate(fold_in(epoch_seed, 10_000 + batch_num))
+                    for i, loss in enumerate(avg_valid):
+                        print(f"Unet {i} avg validation loss: ", loss)
+                        if loss < best_loss[i]:
+                            best_loss[i] = loss
+                            with training_dir("state_dicts"):
+                                save_unet_checkpoint(f"unet_{i}_state_{timestamp}.{CKPT_EXT}",
+                                                     unet_weights(i))
+                    perf = timer.summary()
+                    progress(f"U-Nets Avg Valid Losses: {[round(float(i), 3) for i in avg_valid]}\n"
+                             f"U-Nets Best Valid Losses: {[round(float(i), 3) for i in best_loss]}"
+                             f"\n\nTrain steps/sec: {perf['steps_per_sec']:.3f}\n")
+                    history.append({"epoch": epoch, "batch": batch_num, "train": avg_loss.tolist(),
+                                    "valid": avg_valid.tolist(), "batch_train": losses_np.tolist(),
+                                    "steps_per_sec": perf["steps_per_sec"]})
+            except KeyboardInterrupt:
+                raise
+            except BatchTimeoutError as e:
+                progress(f"BATCH {batch_num} EPOCH {epoch} SKIPPED: {e}\n")
+                if state.torn:
+                    restore_last_dump(e)
+                continue
+            except Exception as e:  # noqa: BLE001 - dump and go on with the next batch
+                progress(f"\n\nTRAINING ABORTED AT EPOCH {epoch}, BATCH NUMBER {batch_num} "
+                         f"with exception {e}. ")
+                if state.torn:  # a dump of this state would overwrite the last good one
+                    progress("THE UPDATE FAILED HALFWAY. ")
+                    restore_last_dump(e)
+                else:
+                    progress("MOST RECENT STATE DICTS SAVED TO ./tmp IN TRAINING FOLDER")
+                    dump_tmp()
+        bar.close()
+
+    dump_tmp()
+    if state.ema_params is not None:  # the instance keeps the weights it was validated with
+        with torch.no_grad():
+            torch._foreach_copy_([p.data for p in state.params], state.ema_params)
+    return {"best_valid_loss": best_loss.tolist(), "history": history,
+            "final_step": state.step, "perf": timer.summary(), "start_step": start_step,
+            "start_adam_count": start_count, "adam_count": state.opt_state.count,
+            "loader_s": loader_s}
+
+
 def window_means(losses: np.ndarray, width: int = 200) -> List[List[float]]:
     """Each stage's mean loss over consecutive `width`-step windows (the rows
     of the committed run's history.json)."""
@@ -244,17 +874,19 @@ def window_means(losses: np.ndarray, width: int = 200) -> List[List[float]]:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
-    """``python -m minimagen_tpu_torch.training [--steps 400] [--seed 0]``:
-    run :func:`train_lite` and print one JSON line with the seed, each stage's
-    mean loss over every 200-step window and the host ms per step."""
+    """``python -m minimagen_tpu_torch.training [--steps 400] [--seed 0]
+    [--mu-dtype f32|bf16]``: run :func:`train_lite` and print one JSON line
+    with the seed, Adam's first-moment dtype, each stage's mean loss over
+    every 200-step window and the host ms per step."""
     import argparse
 
     p = argparse.ArgumentParser(description=main.__doc__)
     p.add_argument("--steps", type=int, default=400)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--mu-dtype", choices=["f32", "bf16"], default="f32")
     args = p.parse_args(argv)
-    run = train_lite(args.steps, seed=args.seed)
-    print(json.dumps({"seed": args.seed, "steps": args.steps,
+    run = train_lite(args.steps, seed=args.seed, mu_dtype=MU_DTYPES[args.mu_dtype])
+    print(json.dumps({"seed": args.seed, "steps": args.steps, "mu_dtype": args.mu_dtype,
                       "finite": bool(np.isfinite(run.losses).all()),
                       "window_means": window_means(run.losses),
                       "host_ms_per_step": run.host_ms_per_step}), flush=True)

@@ -259,7 +259,13 @@ def test_attention_backward_kernels_match_plain_on_card(cuda, dtype, kind, b, n,
     largest output (P and dS are rounded to bf16 as tensor-core operands,
     and D comes from the stored bf16 O), float32 within 2e-5 relative; the
     forward gives the same bits whether or not it writes the log-sum-exp."""
-    q, k, v, g, bias = _attention_case(cuda, dtype, kind, b, n, j, with_bias)
+    _check_forward_backward(kind, dtype, *_attention_case(cuda, dtype, kind, b, n, j, with_bias))
+
+
+def _check_forward_backward(kind, dtype, q, k, v, g, bias):
+    """Forward (with and without the log-sum-exp) and backward kernels
+    against the plain versions at the limits of `_tol`, and the kernel's
+    log-sum-exp within 1e-3 of the logits' own."""
     plain, plain_bwd = tflash._PLAIN[kind]
     bare, none = tflash.attention_forward_kernel(kind, q, k, v, bias)
     out, lse = tflash.attention_forward_kernel(kind, q, k, v, bias, with_lse=True)
@@ -274,6 +280,27 @@ def test_attention_backward_kernels_match_plain_on_card(cuda, dtype, kind, b, n,
     s = torch.einsum("bhnd,bjd->bhnj" if kind == "mqa" else "bhnd,bhjd->bhnj", q.float(), k.float())
     ref_lse = torch.logsumexp(s if bias is None else s + bias, dim=-1)
     assert float((lse - ref_lse).abs().max()) <= 1e-3
+
+
+# (kind, n, j) through each kernel's paths with a sample whose mask drops
+# every key: multi-query rows across heads, a lone-key and a ragged tail;
+# multi-head narrow tails (7, 19, 261), a one-key tail (65) and the lite
+# path's 259 at n = 1024
+DROPPED_ROW_CASES = [("mqa", 64, 65), ("mqa", 100, 130), ("mqa", 1024, 1025), ("mha", 100, 7),
+                     ("mha", 64, 19), ("mha", 64, 65), ("mha", 256, 261), ("mha", 1024, 259)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,n,j", DROPPED_ROW_CASES)
+def test_attention_kernels_on_fully_dropped_rows_on_card(cuda, dtype, kind, n, j):
+    """Sample 1 of 3 drops every key (the others about a quarter): its rows
+    attend uniformly, P = 1/j per key, in the forward and in every backward
+    kernel, as in the plain versions; the same limits as above."""
+    q, k, v, g, _ = _attention_case(cuda, dtype, kind, 3, n, j, False)
+    bias = _mask_bias_np(3, j)
+    bias[1] = tflash.NEG_INF
+    _check_forward_backward(kind, dtype, q, k, v, g, _t(bias).to(cuda))
 
 
 @pytest.mark.cuda

@@ -284,10 +284,10 @@ def test_clipping_matches_optax():
 
 @pytest.mark.parametrize("scale", [0.02, 9.0], ids=["below-limit", "above-limit"])
 def test_optax_style_clip_matches_clip_by_global_norm(scale):
-    """The clip scales by min(1, 50 / norm), the norm in float32 over every
-    leaf, as optax.clip_by_global_norm: below the limit the gradients keep
-    their bits; above it they agree to 2 float32 ulps (optax divides by the
-    norm and multiplies by 50, the port multiplies by 50 / norm)."""
+    """The clip divides by the norm and multiplies by 50 where the norm (in
+    float32 over every leaf) reaches 50, as optax.clip_by_global_norm: below
+    the limit the gradients keep their bits; above it they agree to 2
+    float32 ulps (the two norms are summed in different orders)."""
     rng = np.random.default_rng(13)
     grads = [rng.normal(size=s).astype(np.float32) * scale for s in [(64, 48), (9,), (3, 3, 4, 8)]]
     ref, _ = optax.clip_by_global_norm(50.0).update([jnp.asarray(g) for g in grads], None)
