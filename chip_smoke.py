@@ -91,6 +91,30 @@ Phases, one line each with elapsed seconds; any failure exits non-zero:
    to it, 8 PNGs of 256x256x3 whose pixels equal ``Imagen.sample``'s from
    the same weights, seed and arguments; MinimagenTrain's steps/sec beside
    ``train_lite``'s at the same recipe.
+13b. mesh M1, a world of one process over NCCL on cuda:0: each collective
+   (all-reduce, reduce-scatter, all-gather, broadcast, an object, a
+   barrier) against its expected value; 5 train steps of the lite cascade
+   from a fresh init at batch 16 (bf16 compute, a bf16 Adam first moment,
+   the EMA) on one device and under ``--ZERO1`` off, on and fsdp
+   (``training.make_train_step(mesh=)``), in turns one/off/on/fsdp/fsdp/
+   on/off/one: losses, parameters and EMA equal bits to the one-device
+   step, host ms per step over the last 4 (a measurement); the cascade
+   truncated at 0.2 (DDIM-10, 8 captions) by ``sample(mesh=)`` equal bits
+   to ``sample()``.
+13c. mesh M2, two processes sharing the card over gloo (every collective
+   staged through host memory, which the children's log says), started
+   by ``parallel.collectives.spawn``; each runs 2 float32 steps per mode
+   against the one-device step (losses within 2e-4 relative, parameters
+   and EMA within 1e-5 relative L2: the CPU tests' tolerances) and reports
+   its bytes of parameters, moments and EMA per mode (held equal to the
+   plan's reckoning, which is also printed for the default cascade); bf16
+   ``sample(mesh=)`` of the cascade truncated at 0.2 (DDIM-50, 8 captions,
+   4 per process): base and cascade colour distances at most 0.06, and in
+   float32 within 1e-3 relative L2 of ``sample()``; the pipelined server
+   (stage 0 on process 0, stage 1 on process 1, two requests of 4
+   captions): colour at most 0.06 in bf16 and within 1e-3 relative L2 of
+   ``Imagen.sample`` in float32. Each process counts its launches, and
+   each must have launched every kernel.
 
 The reference's default cascade (``generate.default_imagen``: Base at 64px,
 Super at 128px, t5_base through the hash encoder, 2.33B parameters, fresh
@@ -206,6 +230,13 @@ HARNESS_SIDE = 256
 HARNESS_STEPS = 32
 HARNESS_FAULTS = ("ABORTED", "SKIPPED", "FAILED", "RESTORED")
 HARNESS_TIMEOUT_S = 600
+MESH_BATCH = 16  # the lite training batch (train_lite), split over the mesh
+MESH_STEPS, MESH_TIMED_STEPS = 5, 4  # world 1: the last 4 steps timed
+MESH_TIMING_ORDER = ("one", "off", "on", "fsdp", "fsdp", "on", "off", "one")  # in turns
+MESH_F32_STEPS = 2  # two processes, float32
+MESH_SAMPLE_STEPS = 10
+MESH_LOSS_RTOL, MESH_PARAM_REL = 2e-4, 1e-5  # the CPU tests' (tests/test_torch_parallel.py)
+MESH_TIMEOUT_S = 600
 SEED = 0
 DEVICE = "cuda"
 
@@ -2077,6 +2108,307 @@ def harness_phase(captions):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# --------------------------------------------------------------------------- #
+# the multi-device modes: world 1 over NCCL, two processes sharing the card  #
+# --------------------------------------------------------------------------- #
+def _mesh_imagen(dtype):
+    """The lite cascade from a fresh init (seed 0): float32 masters, `dtype`
+    compute, t5_tiny, as train_lite builds it."""
+    import torch
+    from minimagen_tpu_torch.generate import lite_imagen
+
+    with torch.random.fork_rng(devices=[torch.cuda.current_device()]):
+        torch.manual_seed(SEED)
+        return lite_imagen("t5_tiny", dtype=dtype, param_dtype=torch.float32, device=DEVICE)
+
+
+def _state_bytes(state):
+    """Bytes of this process's parameters (whole where replicated, its
+    shard under FSDP), moments, accumulators and EMA."""
+    from minimagen_tpu_torch.parallel.mesh import SHARD_ATTR
+
+    opt = state.opt_state
+    params = [getattr(p, SHARD_ATTR).local if hasattr(p, SHARD_ATTR) else p for p in state.params]
+    tensors = [*params, *opt.mu, *opt.nu, *(opt.acc_grads or []), *(state.ema_params or [])]
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def mesh_train_modes(mesh, dtype, steps, timed=0, order=("one", "off", "on", "fsdp")):
+    """`steps` train steps of the lite cascade at batch MESH_BATCH (this
+    process's rows on the mesh) in each mode of `order`: one device on the
+    whole batch, off (data parallel), on (ZeRO-1) or fsdp on `mesh`. Each
+    run starts from the same init, Adam with a bf16 first moment (the
+    committed recipe) and the EMA; per mode, a list of its runs' losses,
+    whole parameters and EMA (float32, on the card), the state's bytes, the
+    peak bytes the run allocated above what the process held before it, and
+    host ms per step over the last `timed` steps. The launch counts are
+    the mesh modes' runs only, each counted from 0."""
+    import torch
+    from minimagen_tpu_torch.ops import kernels
+    from minimagen_tpu_torch.parallel import mesh as pmesh
+    from minimagen_tpu_torch.training import DATA_SEED, create_train_state, make_optimizer, make_train_step
+
+    batch = {k: v.to(DEVICE) for k, v in _train_batch(MESH_BATCH).items()}
+    out, launches = {}, {}
+    for mode in order:
+        sync()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        imagen = _mesh_imagen(dtype)
+        on_mesh = mode != "one"
+        plan = {"on": pmesh.zero1_plan, "fsdp": pmesh.fsdp_plan}.get(mode)
+        opt = make_optimizer(1e-4, mu_dtype=torch.bfloat16)
+        state = create_train_state(imagen, opt, ema=True, mesh=mesh if on_mesh else None,
+                                   plan=plan(imagen.unets, mesh) if plan else None)
+        step = make_train_step(imagen, opt, ema_decay=EMA_DECAY, mesh=mesh if on_mesh else None)
+        rows = pmesh.shard_batch(batch, mesh) if on_mesh else batch
+        nbytes = _state_bytes(state)
+        kernels.reset_launch_counts()
+        losses, t0 = [], None
+        for i in range(steps):
+            if i == steps - timed:
+                sync()
+                t0 = time.perf_counter()
+            state, l_ = step(state, rows, seed=DATA_SEED)
+            losses.append(l_)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3 / timed if timed else None
+        if on_mesh:
+            launches[f"{mode} {len(out.get(mode, []))}"] = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() - before
+        whole = lambda ts: torch.cat([t.reshape(-1).float() for t in pmesh.full_tensors(  # noqa: E731
+            ts, state.plan, state.mesh, state.shapes)])
+        out.setdefault(mode, []).append(dict(
+            losses=torch.stack(losses).float(), params=whole(state.local_params()),
+            ema=whole(state.ema_params), bytes=nbytes, peak=peak, ms=ms))
+        del imagen, state, step
+        torch.cuda.empty_cache()
+    return out, launches
+
+
+def mesh_world1(imagen, captions):
+    """M1: a world of one process over NCCL on cuda:0. Every collective
+    against its expected value; the lite train step under off, on and fsdp
+    against the one-device step, and ``sample(mesh=)`` against ``sample()``,
+    each to the bit; host ms per step beside the one-device step's."""
+    import torch
+    import torch.distributed as dist
+    from minimagen_tpu_torch.ops import kernels
+    from minimagen_tpu_torch.parallel import collectives
+    from minimagen_tpu_torch.parallel import mesh as pmesh
+
+    group = collectives.init_process(0, 1, backend="nccl", device="cuda:0", store=dist.HashStore())
+    try:
+        mesh = pmesh.make_mesh(group)
+        log(f"  backend {group.backend}, world {group.size}, device {group.device}")
+        x = torch.arange(12, dtype=torch.float32, device=DEVICE)
+        got = {"all_reduce": collectives.all_reduce(x.clone(), group),
+               "reduce_scatter": collectives.reduce_scatter(torch.empty_like(x), x.clone(), group),
+               "all_gather": collectives.all_gather(torch.empty_like(x), x, group),
+               "broadcast": collectives.broadcast(x.clone(), group)}
+        bad = [k for k, v in got.items() if not torch.equal(v, x)]
+        if collectives.broadcast_object({"a": 1}, group) != {"a": 1}:
+            bad.append("broadcast_object")
+        collectives.barrier(group)
+        if bad:
+            raise PhaseError(f"NCCL collectives at world 1 gave wrong values: {bad}")
+        runs, launches = mesh_train_modes(mesh, torch.bfloat16, MESH_STEPS, MESH_TIMED_STEPS,
+                                          order=MESH_TIMING_ORDER)
+        one = runs["one"][0]
+        for mode in ("one", "off", "on", "fsdp"):
+            same = [k for k in ("losses", "params", "ema")
+                    if all(torch.equal(r[k], one[k]) for r in runs[mode])]
+            ms = ", ".join(f"{r['ms']:.1f}" for r in runs[mode])
+            peak = ", ".join(f"{r['peak'] / 1e9:.3f}" for r in runs[mode])
+            name = "one device" if mode == "one" else f"--ZERO1 {mode}"
+            log(f"  {name}: equal bits {same}; host ms/step {ms} (runs in the order "
+                f"{'/'.join(MESH_TIMING_ORDER)}); state {one['bytes'] / 1e9:.3f} GB at rest, "
+                f"peak GB allocated in the steps {peak}")
+            if len(same) != 3:
+                raise PhaseError(f"mesh step ({mode}) at world 1 differs from the one-device step")
+        kw = dict(cond_scale=COND_SCALE, sampler="ddim", sample_steps=MESH_SAMPLE_STEPS,
+                  sr_start_noise_levels=0.2, cache_interval=None)
+        embeds, masks = imagen.encode_text(captions)
+        kernels.reset_launch_counts()
+        got = imagen.sample(text_embeds=embeds, text_masks=masks, mesh=mesh,
+                            generator=torch.Generator(device=DEVICE).manual_seed(SEED), **kw)
+        sync()
+        launches["sample(mesh=)"] = dict(kernels.LAUNCHES)
+        want = imagen.sample(text_embeds=embeds, text_masks=masks,
+                             generator=torch.Generator(device=DEVICE).manual_seed(SEED), **kw)
+        log(f"  sample(mesh=) {tuple(got.shape)}: equal bits {torch.equal(got, want)}")
+        if not torch.equal(got, want):
+            raise PhaseError("sample(mesh=) at world 1 differs from sample()")
+        total = {k: sum(c[k] for c in launches.values()) for k in kernels.LAUNCHES}
+        log(f"  launches of the mesh calls (the one-device runs not counted): {total}")
+        require_launched(total, "mesh world 1", names=tuple(KERNEL_INFO) + tuple(BACKWARD_INFO))
+        return total
+    finally:
+        collectives.destroy()
+
+
+def _rel(a, b):
+    return float((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-30))
+
+
+def mesh_rank(group, captions):
+    """M2, in each of two processes sharing cuda:0 over gloo: the float32
+    steps against the one-device step, the per-process state bytes, bf16
+    ``sample(mesh=)`` and its float32 twin against ``sample()``, and the
+    pipelined server (stage 0 on process 0, stage 1 on process 1) in bf16
+    and float32. Returns numbers; the parent holds them to their limits.
+    The launches are those of the mesh calls alone (the off/on/fsdp steps,
+    ``sample(mesh=)``, ``serve``), each counted from 0: the one-device
+    step and the ``sample()`` references are not counted."""
+    import torch
+    from minimagen_tpu_torch.generate import load_lite
+    from minimagen_tpu_torch.ops import kernels
+    from minimagen_tpu_torch.parallel import cascade, pipeline
+    from minimagen_tpu_torch.parallel import mesh as pmesh
+    from minimagen_tpu_torch.quality import color_metric
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = pmesh.make_mesh(group)
+    out = {"rank": mesh.rank}
+    runs, launches = mesh_train_modes(mesh, torch.float32, MESH_F32_STEPS)
+    runs = {m: r[0] for m, r in runs.items()}
+    one = runs["one"]
+    out["train"] = {m: dict(loss_rtol=float(((r["losses"] - one["losses"]).abs()
+                                            / one["losses"].abs()).max()),
+                            params=_rel(r["params"], one["params"]), ema=_rel(r["ema"], one["ema"]),
+                            bytes=r["bytes"], peak=r["peak"])
+                    for m, r in runs.items() if m != "one"}
+    out["train"]["one"] = dict(bytes=one["bytes"], peak=one["peak"])
+
+    gen = lambda: torch.Generator(device=DEVICE).manual_seed(SEED)  # noqa: E731
+    kw = dict(cond_scale=COND_SCALE, sampler="ddim", sample_steps=SAMPLE_STEPS,
+              sr_start_noise_levels=0.2, cache_interval=None)
+    for dtype in (torch.bfloat16, torch.float32):
+        imagen = load_lite(device=DEVICE, dtype=dtype)
+        embeds, masks = imagen.encode_text(captions)
+        kernels.reset_launch_counts()
+        base, final = imagen.sample(text_embeds=embeds, text_masks=masks, mesh=mesh,
+                                    generator=gen(), return_all_stage_outputs=True, **kw)
+        sync()
+        launches[f"sample(mesh=) {dtype}"] = dict(kernels.LAUNCHES)
+        if dtype == torch.bfloat16:
+            out["sample_bf16"] = dict(
+                base=color_metric(base.float().cpu().numpy(), captions),
+                trunc=color_metric(final.float().cpu().numpy(), captions),
+                finite=bool(torch.isfinite(final).all()), shape=tuple(final.shape))
+        else:
+            want = imagen.sample(text_embeds=embeds, text_masks=masks, generator=gen(), **kw)
+            out["sample_f32"] = dict(rel=_rel(final, want), equal=bool(torch.equal(final, want)))
+        # the pipelined server: stage s on process s, two requests of 4 captions
+        server = pipeline.CascadePipelineServer(imagen, cascade.make_stage_meshes(2),
+                                                cond_scale=COND_SCALE, sampler="ddim",
+                                                sample_steps=SAMPLE_STEPS, cache_interval=None,
+                                                sr_start_noise_levels=0.2, depth=2)
+        half = len(captions) // 2
+        reqs = [dict(text_embeds=embeds[i * half:(i + 1) * half],
+                     text_masks=masks[i * half:(i + 1) * half], seed=SEED + i) for i in range(2)]
+        kernels.reset_launch_counts()
+        served = list(server.serve(reqs))
+        sync()
+        launches[f"pipeline {dtype}"] = dict(kernels.LAUNCHES)
+        if server.stage == 1:
+            images = torch.cat(served)
+            if dtype == torch.bfloat16:
+                out["pipeline_bf16"] = dict(color=color_metric(images.float().cpu().numpy(), captions),
+                                            finite=bool(torch.isfinite(images).all()))
+            else:
+                want = torch.cat([imagen.sample(text_embeds=r["text_embeds"],
+                                                text_masks=r["text_masks"],
+                                                generator=torch.Generator(device=DEVICE)
+                                                .manual_seed(r["seed"]), **kw) for r in reqs])
+                out["pipeline_f32"] = dict(rel=_rel(images, want),
+                                           equal=bool(torch.equal(images, want)))
+        del imagen, server
+        torch.cuda.empty_cache()
+    out["launches"] = {k: sum(c[k] for c in launches.values()) for k in kernels.LAUNCHES}
+    return out
+
+
+def reckoned_state_bytes(imagen, world):
+    """Per-process bytes of float32 parameters, a bf16 first moment, float32
+    second moment and float32 EMA under off, on (ZeRO-1) and fsdp at data
+    size `world`, from the plan over the U-Nets' shapes (no process)."""
+    import torch
+    from minimagen_tpu_torch.parallel import mesh as pmesh
+    from minimagen_tpu_torch.parallel.collectives import Group
+
+    mesh = pmesh.Mesh(Group(None, tuple(range(world)), 0, "gloo", torch.device("cpu")))
+    plan = pmesh.zero1_plan(imagen.unets, mesh)
+    sizes = [p.numel() for u in imagen.unets for p in u.parameters()]
+    local = [n // world if a is not None else n for n, a in zip(sizes, plan.axes)]
+    return {"off": 14 * sum(sizes), "on": 4 * sum(sizes) + 10 * sum(local),
+            "fsdp": 14 * sum(local)}
+
+
+def mesh_two_processes(captions):
+    """M2: two processes on the one card (gloo, collectives staged through
+    the host); each one's numbers held to the CPU tests' tolerances and the
+    colour limit."""
+    import torch
+    from minimagen_tpu_torch.parallel import collectives
+
+    ranks = collectives.spawn("chip_smoke:mesh_rank", 2, (captions,), backend="gloo",
+                              devices=["cuda:0", "cuda:0"], timeout=MESH_TIMEOUT_S, echo=log)
+    failures = []
+    for r in ranks:
+        tag = f"  rank {r['rank']}:"
+        for mode, t in r["train"].items():
+            name = "one device" if mode == "one" else f"--ZERO1 {mode}"
+            line = (f"{tag} {name}: params + moments + EMA {t['bytes'] / 1e9:.3f} GB at rest, "
+                    f"peak {t['peak'] / 1e9:.3f} GB allocated in the steps")
+            if mode != "one":
+                line += (f" ({t['bytes'] / r['train']['off']['bytes']:.3f} of off); float32 "
+                         f"against one device: loss {t['loss_rtol']:.2e} (limit {MESH_LOSS_RTOL}), "
+                         f"params {t['params']:.2e}, EMA {t['ema']:.2e} rel L2 "
+                         f"(limit {MESH_PARAM_REL})")
+                if not (t["loss_rtol"] <= MESH_LOSS_RTOL and t["params"] <= MESH_PARAM_REL
+                        and t["ema"] <= MESH_PARAM_REL):
+                    failures.append(f"rank {r['rank']} {mode} step")
+            log(line)
+        s = r["sample_bf16"]
+        log(f"{tag} bf16 sample(mesh=) {s['shape']}: base color_dist {s['base']:.4f}, "
+            f"trunc/sr0.2 {s['trunc']:.4f} (limit {COLOR_LIMIT}); float32 against sample(): "
+            f"{r['sample_f32']['rel']:.2e} rel L2 (limit {REFERENCE_LIMIT}), equal bits "
+            f"{r['sample_f32']['equal']}")
+        if not (s["finite"] and s["base"] <= COLOR_LIMIT and s["trunc"] <= COLOR_LIMIT
+                and r["sample_f32"]["rel"] <= REFERENCE_LIMIT):
+            failures.append(f"rank {r['rank']} sample(mesh=)")
+        if "pipeline_bf16" in r:
+            p, q = r["pipeline_bf16"], r["pipeline_f32"]
+            log(f"{tag} pipeline bf16 color_dist {p['color']:.4f} (limit {COLOR_LIMIT}); float32 "
+                f"against Imagen.sample {q['rel']:.2e} rel L2 (limit {REFERENCE_LIMIT}), "
+                f"equal bits {q['equal']}")
+            if not (p["finite"] and p["color"] <= COLOR_LIMIT and q["rel"] <= REFERENCE_LIMIT):
+                failures.append("the pipelined server")
+        log(f"{tag} launches {r['launches']}")
+        require_launched(r["launches"], f"rank {r['rank']}",
+                         names=tuple(KERNEL_INFO) + tuple(BACKWARD_INFO))
+    if not any("pipeline_bf16" in r for r in ranks):
+        failures.append("no process ran the pipeline's last stage")
+    from minimagen_tpu_torch.generate import default_imagen, lite_imagen
+
+    with torch.device("meta"):  # shapes only
+        shapes = (("lite", lite_imagen(device="meta")), ("default", default_imagen(device="meta")))
+    for name, imagen in shapes:
+        n = sum(p.numel() for u in imagen.unets for p in u.parameters())
+        want = reckoned_state_bytes(imagen, 2)
+        log(f"  reckoned per process at 2 processes, {name} cascade ({n / 1e6:.1f}M parameters): "
+            + ", ".join(f"{m} {b / 1e9:.3f} GB" for m, b in want.items()))
+        if name == "lite":
+            measured = {m: ranks[0]["train"][m]["bytes"] for m in want}
+            if measured != want:
+                failures.append(f"measured state bytes {measured} differ from the plan's {want}")
+    if failures:
+        raise PhaseError("; ".join(failures))
+    return {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+
+
 class phase:
     """Context manager printing one line per phase with its elapsed seconds."""
 
@@ -2208,6 +2540,12 @@ def main():
             require_launched(counts, name, names=tuple(KERNEL_INFO) + (
                 tuple(BACKWARD_INFO) if "inference" not in name else ()))
 
+    with phase("mesh M1: world 1 over NCCL on cuda:0, --ZERO1 off/on/fsdp and sample(mesh=) "
+               "against one device"):
+        mesh1_launches = mesh_world1(imagen, captions)
+    with phase("mesh M2: two processes on the card over gloo (staged through the host)"):
+        mesh2_launches = mesh_two_processes(captions)
+
     # ---- the reference's default cascade ----------------------------------
     with phase("free the lite objects; build the default cascade (Base + Super, seed 0)"):
         import gc
@@ -2261,7 +2599,9 @@ def main():
     del big
 
     runs = {"lite sampling": launches, "lite solvers": solver_launches, **lever_paths,
-            "lite learning": train_launches, **harness_launches, "default serving": serve_launches,
+            "lite learning": train_launches, **harness_launches,
+            "mesh world 1": mesh1_launches, "mesh 2 processes": mesh2_launches,
+            "default serving": serve_launches,
             "default DPM++ serving": fast_serve_launches, "default training": big_train_launches}
     for name, counts in runs.items():
         log(f"launches, {name}: {counts}")

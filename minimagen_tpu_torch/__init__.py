@@ -25,7 +25,13 @@ What is ported so far:
   and a bf16 first moment, flax-msgpack checkpoint writing that the JAX
   package reads (``checkpoint.py``), ``generate.load_minimagen`` and
   ``sample_and_save``, and ``python -m minimagen_tpu_torch.train`` /
-  ``.inference`` / ``.main``, the root CLIs' counterparts.
+  ``.inference`` / ``.main``, the root CLIs' counterparts;
+- the multi-device modes on ``torch.distributed``, one process per device
+  (``parallel/``): data parallelism, ZeRO-1 and FSDP over a mesh's data
+  axis, ``Imagen.sample(mesh=)``, cascade-stage training groups, the
+  pipelined cascade server, several hosts, and ``--MESH data`` in the CLIs
+  under ``torchrun``. Tensor parallelism over a ``model`` axis is not
+  ported.
 
 Every Pallas kernel of the JAX package (multi-query and multi-head
 attention, forward and backward, with an optional mask bias; fused GroupNorm

@@ -329,18 +329,21 @@ def save_train_state(path: str, state) -> None:
     write_msgpack(path, train_state_dict(state))
 
 
-def _restore_trees(trees: Any, names: List[Tuple[int, str]], dst: List[torch.Tensor],
-                   what: str) -> None:
+def _restore_trees(trees: Any, state, dst: List[torch.Tensor], what: str) -> None:
+    """Each whole tensor of `trees` into `dst`, or on a mesh into this
+    process's block where `dst` holds one."""
     if not isinstance(trees, dict):
         raise ValueError(f"{what}: the file holds no parameter trees")
     per = {k: unet_state_dict(v) for k, v in trees.items()}
-    want = {f"unet_{i}" for i, _ in names}
+    want = {f"unet_{i}" for i, _ in state.names}
     if set(per) != want:
         raise ValueError(f"{what}: the file holds {sorted(per)}, the state {sorted(want)}")
-    for (i, name), t in zip(names, dst):
+    for idx, ((i, name), shape, t) in enumerate(zip(state.names, state.shapes, dst)):
         src = per[f"unet_{i}"].pop(name, None)
-        if src is None or tuple(src.shape) != tuple(t.shape):
+        if src is None or tuple(src.shape) != tuple(shape):
             raise ValueError(f"{what}: unet_{i}.{name} is missing or has another shape")
+        if tuple(t.shape) != tuple(src.shape):
+            src = state.plan.local(idx, src, state.mesh)
         with torch.no_grad():
             t.copy_(src)
     extra = [f"{k}.{n}" for k, sd in per.items() for n in sd]
@@ -350,27 +353,27 @@ def _restore_trees(trees: Any, names: List[Tuple[int, str]], dst: List[torch.Ten
 
 def load_train_state(path: str, state):
     """Restore a full train state written by either package into `state`
-    (its structure, dtypes and devices kept; values copied in place);
-    returns `state`."""
+    (its structure, dtypes and devices kept; values copied in place; on a
+    mesh each process keeps its blocks); returns `state`."""
     tree = read_msgpack(path)
     if set(tree) != {"step", "params", "opt_state", "ema_params"}:
         raise ValueError(f"{path} is not a train state: keys {sorted(tree)}")
-    opt, names = state.opt_state, state.names
+    opt = state.opt_state
     saved = tree["opt_state"]
     if ("inner_opt_state" in saved) != (opt.acc_grads is not None):
         raise ValueError(f"{path}: gradient accumulation differs between the file and the state")
     if opt.acc_grads is not None:
         opt.mini_step, opt.gradient_step = int(saved["mini_step"]), int(saved["gradient_step"])
-        _restore_trees(saved["acc_grads"], names, opt.acc_grads, "acc_grads")
+        _restore_trees(saved["acc_grads"], state, opt.acc_grads, "acc_grads")
         saved = saved["inner_opt_state"]
     adam = saved["1"]["0"]
     opt.count = int(adam["count"])
-    _restore_trees(adam["mu"], names, opt.mu, "mu")
-    _restore_trees(adam["nu"], names, opt.nu, "nu")
-    _restore_trees(tree["params"], names, state.params, "params")
+    _restore_trees(adam["mu"], state, opt.mu, "mu")
+    _restore_trees(adam["nu"], state, opt.nu, "nu")
+    _restore_trees(tree["params"], state, state.param_targets(), "params")
     if (tree["ema_params"] is None) != (state.ema_params is None):
         raise ValueError(f"{path}: the EMA is in one of the file and the state only")
     if state.ema_params is not None:
-        _restore_trees(tree["ema_params"], names, state.ema_params, "ema_params")
+        _restore_trees(tree["ema_params"], state, state.ema_params, "ema_params")
     state.step = int(tree["step"])
     return state

@@ -220,25 +220,30 @@ def sample_and_save(captions: List[str], *, minimagen: Optional[Imagen] = None,
     image_<idx>.png`` (default directory ``generated_images_<timestamp>``)
     with ``captions.txt`` and ``imagen_training_directory.txt``, from an
     Imagen or a training directory (loaded on `device`). Returns the
-    (b, s, s, 3) uint8 images written."""
+    (b, s, s, 3) uint8 images written. With a ``mesh`` in `sample_args`
+    every process of it samples, and its process 0 alone writes."""
     if (minimagen is None) == (training_directory is None):
         raise ValueError("supply exactly one of a MinImagen instance and a training directory")
     if filetype != "png":
         raise ValueError(f"images are written as png, not {filetype!r}")
     if save_directory is None:
         save_directory = datetime.now().strftime("generated_images_%Y%m%d_%H%M%S")
-    cm = _output_directory(save_directory)
-    with cm():
-        with open("captions.txt", "w") as f:
-            f.writelines(f"{c}\n" for c in captions)
-        if training_directory is not None:
-            with open("imagen_training_directory.txt", "w") as f:
-                f.write(training_directory)
+    mesh = (sample_args or {}).get("mesh")
+    writer = mesh is None or mesh.rank == 0
+    if writer:
+        cm = _output_directory(save_directory)
+        with cm():
+            with open("captions.txt", "w") as f:
+                f.writelines(f"{c}\n" for c in captions)
+            if training_directory is not None:
+                with open("imagen_training_directory.txt", "w") as f:
+                    f.write(training_directory)
     if training_directory is not None:
         minimagen = load_minimagen(training_directory, device=device)
     images = minimagen.sample(texts=captions, **dict(sample_args or {}))
     pixels = to_uint8(images.float().cpu().numpy())
-    with cm("generated_images"):
-        for idx, img in enumerate(pixels):
-            write_png(f"image_{idx}.{filetype}", img)
+    if writer:
+        with cm("generated_images"):
+            for idx, img in enumerate(pixels):
+                write_png(f"image_{idx}.{filetype}", img)
     return pixels

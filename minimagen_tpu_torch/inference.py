@@ -8,8 +8,15 @@ line; default "a happy dog"), ``--TRAINING_DIRECTORY``, ``--SAMPLER``,
 ``--SEED`` (seeds the port's generator; default: fresh entropy) and
 ``--MESH``; sampling at cond_scale 3.0 into ``generated_images_<ts>/``, then
 one JSON line with that directory and the kernels' launch counts.
-``--DEVICE`` (default ``cuda``) is the port's one new flag; ``--MESH data``
-raises, the card is one device.
+``--DEVICE`` (default ``cuda``) is the port's one new flag.
+
+``--MESH data`` splits the captions over the processes, one per device::
+
+    torchrun --nproc_per_node N -m minimagen_tpu_torch.inference --MESH data -d ...
+
+(``sample(mesh=)``: the captions padded to a multiple of N, each process
+denoising its rows; without ``--SEED`` process 0's fresh seed is shared).
+Process 0 writes the directory and prints the JSON line.
 """
 from __future__ import annotations
 
@@ -23,6 +30,8 @@ import torch
 
 from .generate import sample_and_save
 from .ops import kernels
+from .parallel import collectives
+from .parallel.mesh import make_mesh
 
 
 def build_parser() -> ArgumentParser:
@@ -48,7 +57,7 @@ def build_parser() -> ArgumentParser:
     add("--SEED", dest="SEED", type=int, default=None,
         help="seed of the sampling generator (default: fresh entropy per run)")
     add("--MESH", dest="MESH", choices=["none", "data"], default="none",
-        help="multi-device serving ('data'); the port runs on one device")
+        help="multi-device serving ('data'): the captions split over the processes")
     add("--DEVICE", dest="DEVICE", default="cuda", help="torch device to sample on (default cuda)")
     return parser
 
@@ -80,16 +89,24 @@ def sample_args_from(args) -> dict:
 
 def main(argv: Optional[Sequence[str]] = None):
     args = build_parser().parse_args(argv)
-    if args.MESH != "none":
-        raise NotImplementedError("--MESH data needs more than one device; multi-device "
-                                  "serving is not ported yet")
+    mesh = make_mesh(device=args.DEVICE) if args.MESH == "data" else None
     save_directory = datetime.now().strftime("generated_images_%Y%m%d_%H%M%S")
+    if mesh is not None:
+        args.DEVICE = str(mesh.device)
+        if args.SEED is None:
+            args.SEED = int.from_bytes(os.urandom(4), "little")
+        args.SEED, save_directory = collectives.broadcast_object((args.SEED, save_directory),
+                                                                 mesh.group)
+    sample_args = sample_args_from(args)
+    if mesh is not None:
+        sample_args["mesh"] = mesh
     pixels = sample_and_save(read_captions(args.CAPTIONS),
                              training_directory=args.TRAINING_DIRECTORY,
-                             sample_args=sample_args_from(args), save_directory=save_directory,
+                             sample_args=sample_args, save_directory=save_directory,
                              device=args.DEVICE)
-    print(json.dumps({"save_directory": os.path.abspath(save_directory), "images": len(pixels),
-                      "launches": dict(kernels.LAUNCHES)}), flush=True)
+    if mesh is None or mesh.rank == 0:
+        print(json.dumps({"save_directory": os.path.abspath(save_directory),
+                          "images": len(pixels), "launches": dict(kernels.LAUNCHES)}), flush=True)
     return pixels
 
 

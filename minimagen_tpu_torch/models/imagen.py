@@ -35,10 +35,13 @@ per stage, the augmentation noise of the low-res image (super-res stages),
 then the stage's initial image (pure noise, or the truncated start), then
 one draw per step for DDPM. DDIM, DPM-Solver++ and UniPC draw nothing per
 step. Passing ``noise`` injects them, which is how the tests hold a run
-against the JAX package.
+against the JAX package. On a mesh (``sample(mesh=)``, the training step's
+``stage_draws``) every process makes each draw for the whole batch and
+keeps its rows, so a mesh run equals a one-device run.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
@@ -108,6 +111,12 @@ def guided_combine(logits: torch.Tensor, null_logits: torch.Tensor, cond_scale: 
         rescaled = guided * (std_pos / std_cfg.clamp(min=1e-8))
         guided = guidance_rescale * rescaled + (1.0 - guidance_rescale) * guided
     return guided
+
+
+def rows_of_draws(draw: NoiseFn, total: int, rows: slice) -> NoiseFn:
+    """A process's draws from the whole batch's: each batch-shaped draw is
+    made for `total` rows and cut to `rows`."""
+    return lambda shape: draw((total,) + tuple(shape[1:]))[rows]
 
 
 def to_uint8(arr: np.ndarray) -> np.ndarray:
@@ -512,7 +521,7 @@ class Imagen:
                sr_start_noise_levels: Union[float, Sequence[Optional[float]], None] = None,
                return_all_stage_outputs: bool = False,
                generator: Optional[torch.Generator] = None,
-               noise: Optional[NoiseFn] = None):
+               noise: Optional[NoiseFn] = None, device=None, mesh=None):
         """Generate (b, s, s, c) NHWC images in [0, 1] for captions (or
         precomputed T5 encodings) through every stage of the cascade.
 
@@ -520,7 +529,8 @@ class Imagen:
         :param sample_steps: strided steps (default min(50, T)), or one per stage.
         :param grid: 'time', 'lambda' or 'karras' spacing of the strided samplers.
         :param cache_interval: encoder-feature caching per stage: an int
-            (None or 0 off), or 'auto' (2 where the cost model says it pays).
+            (None or 0 off), or 'auto' (2 where the cost model says it pays,
+            for the whole batch of a mesh).
         :param guidance_rescale: phi of :func:`guided_combine` (0 = plain CFG).
         :param data_format: 'NHWC' or 'NCHW' for the returned tensors.
         :param return_pil_images: PIL images of the last stage (needs PIL).
@@ -529,43 +539,94 @@ class Imagen:
             for the super-res stages (or one per stage, None = full reverse).
         :param noise: optional ``noise(shape)`` replacing every random draw
             (order in the module docstring); else ``generator`` is used.
+        :param device: the reference's argument, accepted as the JAX
+            package's is: sampling runs where the U-Nets are, and a device
+            other than theirs raises.
+        :param mesh: a ``parallel.mesh.Mesh``: every process of it calls
+            this with the same captions and an equally seeded generator
+            (or the same `noise`). Captions are padded by repeating the last
+            one to a multiple of the data size; each process denoises its
+            rows from its rows of the whole batch's draws, and all get the
+            whole result back (padding dropped), equal to a one-device run
+            on the padded batch. U-Nets trained under FSDP are gathered one
+            stage at a time.
         """
         if data_format not in ("NHWC", "NCHW"):
             raise ValueError(f"unknown data_format {data_format!r}")
+        if device is not None and torch.device(device).type != self.device.type:
+            raise ValueError(f"sample(device={device!r}): the U-Nets are on {self.device}")
         text_embeds, text_masks = self._text_inputs(texts, text_embeds, text_masks)
         if cond_scale != 1.0 and not self.can_classifier_guidance:
             raise ValueError("classifier-free guidance needs a model trained with cond_drop_prob > 0")
         draw = self._noise_fn(noise, generator)
         b = text_embeds.shape[0]
-        rows = b * (2 if cond_scale != 1.0 else 1)
-        noise_level = default(lowres_sample_noise_level, self.lowres_sample_noise_level)
-        per_stage = lambda v, i: v[i] if isinstance(v, (list, tuple)) else v  # noqa: E731
+        total = b
+        gathered = lambda params: contextlib.nullcontext()  # noqa: E731
+        if mesh is not None:
+            from ..parallel.mesh import gather_rows, gathered  # noqa: PLC0415
+            pad = (-b) % mesh.size
+            if pad:
+                text_embeds = torch.cat([text_embeds, text_embeds[-1:].expand(pad, -1, -1)])
+                if text_masks is not None:
+                    text_masks = torch.cat([text_masks, text_masks[-1:].expand(pad, -1)])
+            total = b + pad
+            rows = mesh.rows(total)
+            text_embeds = text_embeds[rows]
+            text_masks = None if text_masks is None else text_masks[rows]
+            draw = rows_of_draws(draw, total, rows)
+        options = dict(cond_scale=cond_scale, sampler=sampler, sample_steps=sample_steps,
+                       grid=grid, cache_interval=cache_interval,
+                       guidance_rescale=guidance_rescale, progress=progress,
+                       lowres_sample_noise_level=lowres_sample_noise_level,
+                       sr_start_noise_levels=sr_start_noise_levels)
         img, outputs = None, []
         for stage in range(self.num_unets):
-            size = self.image_sizes[stage]
-            steps = per_stage(sample_steps, stage)
-            lowres = lowres_times = start_at = None
-            if self.unet_configs[stage].lowres_cond:
-                lowres, lowres_times = self._lowres_condition(stage, img, noise_level, draw)
-                sr_level = per_stage(sr_start_noise_levels, stage)
-                if sr_level is not None:
-                    start_at = self._truncation_start(stage, sr_level, sampler, steps, grid)
-            shape = (b, size, size, self.channels)
-            init = (draw(shape) if start_at is None
-                    else self._truncation_init(stage, img, start_at, draw(shape)))
-            img = self.sample_stage(
-                stage, text_embeds, text_masks, cond_scale, init_noise=init,
-                lowres_cond_img=lowres, lowres_noise_times=lowres_times, sampler=sampler,
-                sample_steps=steps, start_at=start_at, grid=grid,
-                cache_interval=self._resolve_cache_interval(cache_interval, stage, rows,
-                                                            text_embeds.shape[1]),
-                guidance_rescale=guidance_rescale, progress=progress, noise=draw)
+            with gathered(self.unets[stage].parameters()):  # FSDP: one stage at a time
+                img = self.cascade_stage(stage, img, text_embeds, text_masks, draw=draw,
+                                         total_rows=total, **options)
             outputs.append(img)
+        if mesh is not None:
+            outputs = [gather_rows(o, mesh, total)[:b] for o in outputs]
+            img = outputs[-1]
         if return_pil_images:
             return [_to_pil(im) for im in img.float().cpu().numpy()]
         if data_format == "NCHW":
             outputs = [o.permute(0, 3, 1, 2) for o in outputs]
         return outputs if return_all_stage_outputs else outputs[-1]
+
+    @torch.inference_mode()
+    def cascade_stage(self, stage: int, img, text_embeds, text_masks, *, draw: NoiseFn,
+                      total_rows: int, cond_scale: float = 1.0, sampler: str = "ddpm",
+                      sample_steps=None, grid: str = "time", cache_interval="auto",
+                      guidance_rescale: float = 0.0, progress: bool = False,
+                      lowres_sample_noise_level: Optional[float] = None,
+                      sr_start_noise_levels=None) -> torch.Tensor:
+        """One stage of :meth:`sample` over the rows of `text_embeds` from the
+        previous stage's `img` (None for the first): its low-res condition and
+        truncated start (super-res stages), its initial image and its reverse
+        process, its draws from `draw`. `total_rows` is the whole batch's
+        row count, which 'auto' caching decides by."""
+        per_stage = lambda v: v[stage] if isinstance(v, (list, tuple)) else v  # noqa: E731
+        noise_level = default(lowres_sample_noise_level, self.lowres_sample_noise_level)
+        size = self.image_sizes[stage]
+        steps = per_stage(sample_steps)
+        lowres = lowres_times = start_at = None
+        if self.unet_configs[stage].lowres_cond:
+            lowres, lowres_times = self._lowres_condition(stage, img, noise_level, draw)
+            sr_level = per_stage(sr_start_noise_levels)
+            if sr_level is not None:
+                start_at = self._truncation_start(stage, sr_level, sampler, steps, grid)
+        shape = (text_embeds.shape[0], size, size, self.channels)
+        init = (draw(shape) if start_at is None
+                else self._truncation_init(stage, img, start_at, draw(shape)))
+        rows = total_rows * (2 if cond_scale != 1.0 else 1)
+        return self.sample_stage(
+            stage, text_embeds, text_masks, cond_scale, init_noise=init,
+            lowres_cond_img=lowres, lowres_noise_times=lowres_times, sampler=sampler,
+            sample_steps=steps, start_at=start_at, grid=grid,
+            cache_interval=self._resolve_cache_interval(cache_interval, stage, rows,
+                                                        text_embeds.shape[1]),
+            guidance_rescale=guidance_rescale, progress=progress, noise=draw)
 
     @torch.inference_mode()
     def super_resolve(self, images, *, stage: int = 1, texts: Optional[List[str]] = None,
@@ -622,25 +683,16 @@ class Imagen:
         classifier-free-guidance `keep_mask` (b,) are drawn from `generator`
         unless given; offset noise applies only to drawn noise."""
         scheduler = self.noise_schedulers[stage]
-        b = x_start.shape[0]
-        draw = self._noise_fn(None, generator)
-        if noise is None:
-            noise = draw(x_start.shape)
-            if self.offset_noise_scale > 0.0:
-                noise = noise + self.offset_noise_scale * draw((b, 1, 1, x_start.shape[-1]))
+        noise, lowres_noise, keep_mask = self._noise_draws(
+            x_start.shape, lowres_cond_img is not None, generator, noise, lowres_noise, keep_mask)
         x_start = self.normalize_img(x_start)
         x_noisy = scheduler.q_sample(x_start=x_start, t=times, noise=noise)
         lowres_noisy = None
         if lowres_cond_img is not None:
             lowres_cond_img = self.normalize_img(lowres_cond_img)
             lowres_aug_times = default(lowres_aug_times, times)
-            if lowres_noise is None:
-                lowres_noise = draw(lowres_cond_img.shape)
             lowres_noisy = self.lowres_noise_schedule.q_sample(
                 x_start=lowres_cond_img, t=lowres_aug_times, noise=lowres_noise)
-        if keep_mask is None:
-            keep_mask = prob_mask_like((b,), 1.0 - self.cond_drop_prob, generator=generator,
-                                       device=self.device)
         pred = self.unets[stage](x_noisy, times, text_embeds=text_embeds, text_mask=text_mask,
                                  text_keep_mask=keep_mask, lowres_cond_img=lowres_noisy,
                                  lowres_noise_times=lowres_aug_times)
@@ -667,21 +719,55 @@ class Imagen:
         size = self.image_sizes[stage]
         if c != self.channels or h < size or w < size:
             raise ValueError(f"images {tuple(images.shape)} do not fit stage {stage} ({size}px)")
-        if times is None:
-            times = self.noise_schedulers[stage].sample_random_times(b, generator)
+        draws = self.stage_draws(stage, b, generator, times=times,
+                                 lowres_aug_times=lowres_aug_times, noise=noise,
+                                 lowres_noise=lowres_noise, keep_mask=keep_mask)
         lowres = None
         if stage > 0:
             clamp = self.input_image_range
             lowres = resize_image_to(images, self.image_sizes[stage - 1], clamp_range=clamp)
             lowres = resize_image_to(lowres, size, clamp_range=clamp)
-            if lowres_aug_times is None:
-                lowres_aug_times = self.lowres_noise_schedule.sample_random_times(
-                    1, generator).expand(b)
-        return self.p_losses(stage, resize_image_to(images, size), times,
-                             text_embeds=text_embeds, text_mask=text_mask, lowres_cond_img=lowres,
-                             lowres_aug_times=lowres_aug_times if stage > 0 else None,
-                             noise=noise, lowres_noise=lowres_noise, keep_mask=keep_mask,
-                             generator=generator)
+        return self.p_losses(stage, resize_image_to(images, size), text_embeds=text_embeds,
+                             text_mask=text_mask, lowres_cond_img=lowres, **draws)
+
+    def stage_draws(self, stage: int, batch_size: int, generator: Optional[torch.Generator] = None,
+                    *, times: Optional[torch.Tensor] = None,
+                    lowres_aug_times: Optional[torch.Tensor] = None,
+                    noise: Optional[torch.Tensor] = None,
+                    lowres_noise: Optional[torch.Tensor] = None,
+                    keep_mask: Optional[torch.Tensor] = None) -> dict:
+        """Every random draw of :meth:`stage_loss` for `batch_size` rows, the
+        given ones kept and the others drawn from `generator` in the
+        documented order. Each has the batch as its first axis, so a process
+        of a mesh draws the global batch's and keeps its rows."""
+        if times is None:
+            times = self.noise_schedulers[stage].sample_random_times(batch_size, generator)
+        if stage > 0 and lowres_aug_times is None:
+            lowres_aug_times = self.lowres_noise_schedule.sample_random_times(
+                1, generator).expand(batch_size)
+        size = self.image_sizes[stage]
+        noise, lowres_noise, keep_mask = self._noise_draws(
+            (batch_size, size, size, self.channels), stage > 0, generator, noise, lowres_noise,
+            keep_mask)
+        draws = dict(times=times, noise=noise, keep_mask=keep_mask)
+        if stage > 0:
+            draws.update(lowres_aug_times=lowres_aug_times, lowres_noise=lowres_noise)
+        return draws
+
+    def _noise_draws(self, shape, lowres: bool, generator, noise, lowres_noise, keep_mask):
+        """The noise (with its offset), the low-res noise and the keep mask
+        of :meth:`p_losses`, drawn where not given."""
+        draw = self._noise_fn(None, generator)
+        if noise is None:
+            noise = draw(shape)
+            if self.offset_noise_scale > 0.0:
+                noise = noise + self.offset_noise_scale * draw((shape[0], 1, 1, shape[-1]))
+        if lowres and lowres_noise is None:
+            lowres_noise = draw(shape)
+        if keep_mask is None:
+            keep_mask = prob_mask_like((shape[0],), 1.0 - self.cond_drop_prob,
+                                       generator=generator, device=self.device)
+        return noise, lowres_noise, keep_mask
 
     def forward(self, images, texts: Optional[List[str]] = None, text_embeds=None,
                 text_masks=None, unet_number: Optional[int] = None, *,

@@ -10,9 +10,18 @@ RESTART_DIRECTORY > PARAMETERS > TESTING > defaults. It makes
 ``training_<timestamp>/`` with the flags and configs, then runs
 :func:`training.MinimagenTrain`, and prints the run's summary as one JSON
 line with the kernels' launch counts. ``--DEVICE`` (default ``cuda``) is the
-port's one new flag; the card
-is one device, so ``--MESH data`` raises. A restart keeps ``--BF16`` and
-``--REMAT`` (the JAX CLI rebuilds a restarted model in float32).
+port's one new flag. A restart keeps ``--BF16`` and ``--REMAT`` (the JAX CLI
+rebuilds a restarted model in float32).
+
+``--MESH data`` trains data-parallel, one process per device, sharded as
+``--ZERO1`` says (``on``: ZeRO-1, ``fsdp``, ``off``)::
+
+    torchrun --nproc_per_node N -m minimagen_tpu_torch.train --MESH data [flags]
+
+Each process uses ``cuda:{LOCAL_RANK}`` (NCCL; gloo for ``--DEVICE cpu``),
+loads the same batches (``-b`` is the global batch) and keeps its rows;
+process 0 makes the directory and writes the files, and prints the JSON
+line. Without torchrun's environment ``--MESH data`` is a mesh of one.
 """
 from __future__ import annotations
 
@@ -27,6 +36,8 @@ from .generate import load_minimagen, load_params
 from .models.imagen import Imagen
 from .models.unet import Base, BaseTest, Super, SuperTest, UnetConfig
 from .ops import kernels
+from .parallel import collectives
+from .parallel.mesh import make_mesh
 from .training import (
     MU_DTYPES,
     ConceptualCaptions,
@@ -84,12 +95,18 @@ def _fresh_imagen(unets_params, imagen_params, args) -> Imagen:
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = build_parser().parse_args(argv)
-    if args.MESH != "none":
-        raise NotImplementedError("--MESH data needs more than one device; multi-device "
-                                  "training is not ported yet")
+    mesh = make_mesh(device=args.DEVICE) if args.MESH == "data" else None
+    writer = mesh is None or mesh.rank == 0
     timestamp = args.timestamp or datetime.now().strftime("%Y%m%d_%H%M%S")
+    if mesh is not None:
+        args.DEVICE = str(mesh.device)
+        timestamp = collectives.broadcast_object(timestamp, mesh.group)
     dir_path = f"./training_{timestamp}"
-    training_dir = create_directory(dir_path)
+    if writer:
+        training_dir = create_directory(dir_path)
+    if mesh is not None:
+        collectives.barrier(mesh.group)
+        training_dir = create_directory(dir_path)
 
     if args.RESTART_DIRECTORY is not None:
         args = load_restart_training_parameters(args)
@@ -138,13 +155,15 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     unets = imagen.unet_configs
     unets_params = [cfg.to_dict() for cfg in imagen.unet_configs]
     imagen_params = imagen_config_dict(imagen_params)
-    save_training_info(args, timestamp, unets_params, imagen_params, get_model_size(imagen),
-                       training_dir)
+    if writer:
+        save_training_info(args, timestamp, unets_params, imagen_params, get_model_size(imagen),
+                           training_dir)
     optimizer = make_optimizer(args.OPTIM_LR, args.ACCUM_ITER, mu_dtype=MU_DTYPES[args.MU_DTYPE])
     summary = MinimagenTrain(timestamp, args, unets, imagen, train_dataloader, valid_dataloader,
-                             training_dir, optimizer, timeout=30)
-    print(json.dumps({"training_directory": os.path.abspath(dir_path), "summary": summary,
-                      "launches": dict(kernels.LAUNCHES)}), flush=True)
+                             training_dir, optimizer, timeout=30, mesh=mesh)
+    if writer:
+        print(json.dumps({"training_directory": os.path.abspath(dir_path), "summary": summary,
+                          "launches": dict(kernels.LAUNCHES)}), flush=True)
     return summary
 
 

@@ -1,5 +1,5 @@
-"""Training on one device and the training harness (counterpart of
-``minimagen_tpu/parallel/mesh.py:250-447`` at one device, of
+"""Training, on one device or a mesh, and the training harness
+(counterpart of ``minimagen_tpu/parallel/mesh.py:250-447``, of
 ``minimagen_tpu/training.py`` and of ``examples/train_flagship_tpu.py
 --model lite``).
 
@@ -14,10 +14,15 @@ The step:
 - :func:`make_train_step`: one step sums every stage's loss, runs one
   backward pass, then the optimizer and the EMA. Its random draws come from
   a generator seeded by the caller's seed with the global step folded in,
-  so a run repeats exactly. :func:`make_eval_step`: the per-stage losses
-  without gradients.
+  so a run repeats exactly. :func:`make_chained_train_step`: K such steps.
+  :func:`make_eval_step`: the per-stage losses without gradients.
+- On a mesh (``parallel/mesh.py``: one process per device, each with its
+  rows of the batch) the same functions run data-parallel, ZeRO-1 or FSDP
+  as the state's plan says, and a step equals the one-device step on the
+  whole batch: each process makes the whole batch's draws and keeps its
+  rows.
 - :func:`device_prefetch`: the next batches copied to the card on a side
-  stream while the current step runs.
+  stream while the current step runs (on a mesh, this process's rows).
 - :func:`train_lite`: the lite cascade trained from a fresh flax-style init
   on the synthetic set with the committed run's recipe (``assets/lite_ckpt/
   meta.json``: its held-out combos, 512 items, batch 16, lr 1e-4, EMA 0.9995;
@@ -33,8 +38,10 @@ parameters, the configs of a ``parameters/`` directory and of a preset
 checkpoint and validation every ``CHCKPT_NUM`` batches, best-validation
 U-Nets in ``state_dicts/``, full-state dumps in ``tmp/`` from which a
 restart resumes, a per-batch watchdog and crash dumps. Checkpoints are the
-JAX package's flax-msgpack files (``checkpoint.py``). Not ported: the Orbax
-checkpoints and the meshes of multi-device runs.
+JAX package's flax-msgpack files (``checkpoint.py``); a mesh run's full
+state is the port's own sharded directory (``parallel/checkpoint.py``),
+restorable at any world size. Not ported: the JAX
+package's Orbax dumps of its mesh runs.
 """
 from __future__ import annotations
 
@@ -61,9 +68,13 @@ from .data.dataset import ConceptualCaptions, SyntheticCaptionedImages  # noqa: 
 from .generate import LITE_CKPT_DIR, lite_imagen
 from .models.imagen import Imagen
 from .models.unet import UnetConfig
+from .parallel import collectives
+from .parallel import mesh as pmesh
+from .parallel.checkpoint import latest_dump, load_sharded_state, save_sharded_state
 from .utils.profiling import StepTimer
 from .utils.progress import ProgressBar
 
+NormFn = Callable[[Sequence[torch.Tensor]], torch.Tensor]
 GRAD_CLIP_NORM = 50.0
 DATA_SEED = 42  # the seed train_lite's steps fold their step into
 MU_DTYPES = {"f32": None, "bf16": torch.bfloat16}  # --MU_DTYPE / --mu-dtype choices
@@ -127,10 +138,12 @@ class ClippedAdam:
         return torch.linalg.vector_norm(torch.stack(
             [n.float() for n in torch._foreach_norm(list(grads))]))
 
-    def clip_grads(self, grads: List[torch.Tensor]) -> torch.Tensor:
-        """In place, optax's clip: g where the norm is below 50, else
-        (g / norm) * 50; returns the norm."""
-        norm = self.global_norm(grads)
+    def clip_grads(self, grads: List[torch.Tensor],
+                   norm: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """In place, optax's clip: g where the norm (default:
+        :meth:`global_norm` of `grads`) is below 50, else (g / norm) * 50;
+        returns the norm."""
+        norm = self.global_norm(grads) if norm is None else norm
         below = norm < GRAD_CLIP_NORM
         one = torch.ones((), device=norm.device)
         torch._foreach_div_(grads, torch.where(below, one, norm))
@@ -143,11 +156,10 @@ class ClippedAdam:
 
     def _adam(self, params: List[torch.Tensor], grads: List[torch.Tensor],
               state: AdamState) -> None:
-        """One clipped Adam update of `params` from float32 `grads` (clipped
-        in place). The moments are updated in place; the update holds one
+        """One Adam update of `params` from float32 `grads` (clipped
+        already). The moments are updated in place; the update holds one
         float32 list the size of the parameters (the denominator) and, for a
         bfloat16 first moment, its float32 copy."""
-        self.clip_grads(grads)
         # mu = (1 - b1) g + b1 mu as a fused multiply-add on the gradient term
         # (XLA contracts it so, and ``add(alpha=)`` is one here), b1 mu taken
         # in float32 with b1 rounded to mu's dtype (JAX's weakly typed 0.9
@@ -173,14 +185,22 @@ class ClippedAdam:
                 dst.copy_(src)
 
     @torch.no_grad()
-    def step(self, params: Sequence[torch.nn.Parameter], state: AdamState) -> bool:
-        """Update `params` in place from their ``.grad`` (None counts as
-        zero, as optax updates every leaf); returns whether they moved (False
-        on the mini-steps of an accumulation)."""
+    def step(self, params: Sequence[torch.Tensor], state: AdamState,
+             grads: Optional[List[torch.Tensor]] = None,
+             norm_fn: Optional[NormFn] = None) -> bool:
+        """Update `params` in place from float32 `grads` (default: their
+        ``.grad``, None counting as zero, as optax updates every leaf);
+        returns whether they moved (False on the mini-steps of an
+        accumulation). `norm_fn` computes the clip's global norm (default
+        :meth:`global_norm`; a mesh's counts each element once over the
+        ranks' shards)."""
         params = list(params)
-        grads = [torch.zeros_like(p, dtype=torch.float32) if p.grad is None else p.grad.float()
-                 for p in params]
+        if grads is None:
+            grads = [torch.zeros_like(p, dtype=torch.float32) if p.grad is None
+                     else p.grad.float() for p in params]
+        norm_fn = norm_fn or self.global_norm
         if self.accum_iter <= 1:
+            self.clip_grads(grads, norm_fn(grads))
             self._adam(params, grads, state)
             return True
         acc = state.acc_grads
@@ -190,7 +210,8 @@ class ClippedAdam:
         if state.mini_step < self.accum_iter - 1:
             state.mini_step += 1
             return False
-        self._adam(params, acc, state)  # acc is clipped in place, then zeroed
+        self.clip_grads(acc, norm_fn(acc))  # in place; zeroed after the update
+        self._adam(params, acc, state)
         torch._foreach_zero_(acc)
         state.mini_step = 0
         state.gradient_step += 1
@@ -207,11 +228,16 @@ def make_optimizer(lr: float, accum_iter: int = 1,
 
 @dataclass
 class TrainState:
-    """The step counter, every U-Net's parameters (stage by stage, in module
+    """The step counter, the U-Nets' parameters (stage by stage, in module
     order), the optimizer's state, the EMA (a float32 copy, or None) and
     each parameter's (stage, name), the key its checkpoints use. `torn` is
     True while an update is applied, and stays True if one failed halfway:
-    the state is then no step of the run (:func:`applying_update`)."""
+    the state is then no step of the run (:func:`applying_update`).
+
+    On a mesh (`mesh`, `plan`), the moments, accumulators and EMA of a leaf
+    the plan shards hold this process's block of it; under FSDP so do the
+    parameters (``parallel.mesh.ParamShard``), whose ``data`` is empty at
+    rest. :meth:`local_params` are the tensors the optimizer updates."""
 
     step: int
     params: List[torch.nn.Parameter]
@@ -219,21 +245,67 @@ class TrainState:
     ema_params: Optional[List[torch.Tensor]] = None
     names: List[Tuple[int, str]] = dataclasses.field(default_factory=list)
     torn: bool = False
+    mesh: Optional[pmesh.Mesh] = None
+    plan: Optional[pmesh.Plan] = None
+
+    def local_params(self) -> List[torch.Tensor]:
+        """This process's part of each parameter: the whole (one device,
+        replicated leaves), a view of its block (ZeRO-1) or its shard (FSDP)."""
+        out = []
+        for i, p in enumerate(self.params):
+            shard = getattr(p, pmesh.SHARD_ATTR, None)
+            if shard is not None:
+                out.append(shard.local)
+            elif self.plan is None:
+                out.append(p.detach())
+            else:
+                out.append(self.plan.local(i, p.detach(), self.mesh))
+        return out
+
+    def param_targets(self) -> List[torch.Tensor]:
+        """Where a restore writes each parameter: the whole tensor, or under
+        FSDP this process's shard."""
+        return [getattr(p, pmesh.SHARD_ATTR).local if hasattr(p, pmesh.SHARD_ATTR)
+                else p.detach() for p in self.params]
+
+    @property
+    def shapes(self) -> List[torch.Size]:
+        """Each parameter's full shape."""
+        return [pmesh.full_shape(p) for p in self.params]
 
 
-def unet_parameters(imagen: Imagen) -> List[torch.nn.Parameter]:
-    """Every U-Net's parameters, stage by stage, in module order."""
-    return [p for unet in imagen.unets for p in unet.parameters()]
+def unet_parameters(imagen: Imagen, stages: Optional[Sequence[int]] = None
+                    ) -> List[torch.nn.Parameter]:
+    """The U-Nets' parameters (of `stages`, default all), stage by stage, in
+    module order."""
+    stages = range(imagen.num_unets) if stages is None else stages
+    return [p for i in stages for p in imagen.unets[i].parameters()]
 
 
-def create_train_state(imagen: Imagen, optimizer: ClippedAdam, *, ema: bool = False) -> TrainState:
-    """Fresh state over the U-Nets' parameters; `ema` also keeps a float32
-    copy of them for the moving average."""
-    params = unet_parameters(imagen)
-    ema_params = [p.detach().float().clone() for p in params] if ema else None
-    names = [(i, name) for i, unet in enumerate(imagen.unets) for name, _ in unet.named_parameters()]
-    return TrainState(step=0, params=params, opt_state=optimizer.init(params),
-                      ema_params=ema_params, names=names)
+def create_train_state(imagen: Imagen, optimizer: ClippedAdam, *, ema: bool = False,
+                       mesh: Optional[pmesh.Mesh] = None, plan: Optional[pmesh.Plan] = None,
+                       stages: Optional[Sequence[int]] = None) -> TrainState:
+    """Fresh state over the U-Nets' parameters (of `stages`, default all);
+    `ema` also keeps a float32 copy of them for the moving average. On a
+    `mesh`, `plan` (``parallel.mesh.zero1_plan`` / ``fsdp_plan``; default
+    every leaf replicated) shards the moments, accumulators and EMA, and
+    under FSDP puts the parameters to rest as their shards; every process
+    first takes process 0's parameters, so that all start from one init
+    however each built its imagen."""
+    stages = tuple(range(imagen.num_unets)) if stages is None else tuple(stages)
+    params = unet_parameters(imagen, stages)
+    names = [(i, name) for i in stages for name, _ in imagen.unets[i].named_parameters()]
+    if mesh is not None:
+        plan = plan if plan is not None else pmesh.Plan((None,) * len(params))  # plain DP
+        pmesh.broadcast_params(params, mesh)
+        if plan.shard_params:
+            pmesh.shard_parameters(params, plan, mesh)
+    state = TrainState(step=0, params=params, opt_state=None, names=names, mesh=mesh,
+                       plan=plan if mesh is not None else None)
+    local = [t.contiguous() for t in state.local_params()]
+    state.opt_state = optimizer.init(local)
+    state.ema_params = [t.float().clone() for t in local] if ema else None
+    return state
 
 
 class _UpdateInProgress:
@@ -269,61 +341,155 @@ def fold_in(seed: int, step: int) -> int:
     return int.from_bytes(digest[:8], "little") >> 1
 
 
-def make_train_step(imagen: Imagen, optimizer: ClippedAdam, ema_decay: float = 0.9999):
-    """fn(state, batch, seed=0, draws=None) -> (state, losses (num_unets,)).
+def make_train_step(imagen: Imagen, optimizer: ClippedAdam, ema_decay: float = 0.9999, *,
+                    mesh: Optional[pmesh.Mesh] = None, stages: Optional[Sequence[int]] = None):
+    """fn(state, batch, seed=0, draws=None) -> (state, losses (len(stages),)).
 
     `batch` = {'image': (b, s, s, 3) in [0, 1], 'encoding': (b, L, d),
-    'mask': (b, L)} on the imagen's device. `draws`, one dict per stage of
-    injected ``stage_loss`` draws (times, lowres_aug_times, noise,
-    lowres_noise, keep_mask), replaces the generator's. The EMA update is
+    'mask': (b, L)} on the imagen's device: on a `mesh`, this process's b
+    rows of a batch of b * data-size. The step sums the losses of `stages`
+    (default all), runs one backward pass, then the optimizer and the EMA.
+    Its draws come from one generator seeded ``fold_in(seed, step)``, made
+    for the whole batch in :meth:`Imagen.stage_draws`'s order, stage by
+    stage; `draws`, one dict per stage of injected draws for the whole
+    batch, replaces them. A process keeps its rows of them, so a mesh step
+    is the one-device step on the whole batch. The EMA update is
     ``ema * d + p * (1 - d)`` in float32, with d and 1 - d rounded to
-    float32 as the JAX package computes them. The optimizer, the EMA and
-    the step counter are applied inside :func:`applying_update`."""
+    float32 as the JAX package computes them. The optimizer, the EMA and the
+    step counter are applied inside :func:`applying_update`.
+
+    On a mesh (``mesh.py:315-386``) the state's plan decides the
+    collectives: each gradient is summed over the processes and divided by
+    their number in float32 (reduce-scattered onto this process's block
+    where the plan shards it), the clip's norm counts each element once,
+    the optimizer and the EMA update the local blocks, and under ZeRO-1 the
+    blocks are all-gathered back into the parameters. Under FSDP the stages
+    run one after another: a stage's U-Net is gathered for its forward and
+    backward passes, and its gradients are reduce-scattered before the next
+    stage is gathered (the losses are a sum, so each stage's backward is
+    its own). The losses returned are the whole batch's."""
     d32 = np.float32(ema_decay)
     decay, one_minus = float(d32), float(np.float32(1.0) - d32)
+    stages = tuple(range(imagen.num_unets)) if stages is None else tuple(stages)
 
     def step_fn(state: TrainState, batch: Dict[str, torch.Tensor], seed: int = 0,
                 draws: Optional[List[Dict[str, torch.Tensor]]] = None):
-        gen = torch.Generator(device=imagen.device).manual_seed(fold_in(seed, state.step))
-        losses = [imagen.stage_loss(i, batch["image"], batch["encoding"], batch["mask"],
-                                    generator=gen, **(draws[i] if draws else {}))
-                  for i in range(imagen.num_unets)]
+        total = batch["image"].shape[0] * (mesh.size if mesh is not None else 1)
+        if draws is None:
+            gen = torch.Generator(device=imagen.device).manual_seed(fold_in(seed, state.step))
+            draws = [imagen.stage_draws(i, total, gen) for i in stages]
+        if mesh is not None:
+            rows = mesh.rows(total)
+            draws = [{k: v[rows] for k, v in d.items()} for d in draws]
+        loss_of = lambda i, d: imagen.stage_loss(  # noqa: E731
+            i, batch["image"], batch["encoding"], batch["mask"], **d)
         for p in state.params:
             p.grad = None
-        torch.stack(losses).sum().backward()
+        if state.plan is not None and state.plan.shard_params:
+            losses, grads, shapes = [], [], state.shapes
+            for i, d in zip(stages, draws):
+                idx = [k for k, (s, _) in enumerate(state.names) if s == i]
+                params = [state.params[k] for k in idx]
+                with pmesh.gathered(params):
+                    loss = loss_of(i, d)
+                    loss.backward()
+                grads += pmesh.reduce_gradients(
+                    [p.grad for p in params], [shapes[k] for k in idx],
+                    pmesh.Plan(tuple(state.plan.axes[k] for k in idx), True), mesh)
+                for p in params:
+                    p.grad = None
+                losses.append(loss.detach())
+            losses = torch.stack(losses)
+        else:
+            losses = [loss_of(i, d) for i, d in zip(stages, draws)]
+            torch.stack(losses).sum().backward()
+            losses = torch.stack([loss.detach() for loss in losses])
+        norm_fn = None
+        if mesh is None:
+            grads = [torch.zeros_like(p, dtype=torch.float32) if p.grad is None
+                     else p.grad.float() for p in state.params]
+        else:
+            if not state.plan.shard_params:
+                grads = pmesh.reduce_gradients([p.grad for p in state.params], state.shapes,
+                                               state.plan, mesh)
+                for p in state.params:
+                    p.grad = None
+            norm_fn = pmesh.global_norm_fn(state.plan, mesh, optimizer.global_norm)
+            losses = collectives.all_reduce(losses, mesh.group) / mesh.size
         with applying_update(state):
-            optimizer.step(state.params, state.opt_state)
+            local = state.local_params()
+            optimizer.step(local, state.opt_state, grads=grads, norm_fn=norm_fn)
             if state.ema_params is not None:
                 with torch.no_grad():
                     torch._foreach_mul_(state.ema_params, decay)
-                    torch._foreach_add_(state.ema_params,
-                                        [p.detach().float() for p in state.params],
+                    torch._foreach_add_(state.ema_params, [t.float() for t in local],
                                         alpha=one_minus)
+            pmesh.sync_params(state.params, state.plan, mesh)
             state.step += 1
-        return state, torch.stack([loss.detach() for loss in losses])
+        return state, losses
 
     return step_fn
 
 
-def make_eval_step(imagen: Imagen):
+def make_chained_train_step(imagen: Imagen, optimizer: ClippedAdam, ema_decay: float = 0.9999,
+                            *, mesh: Optional[pmesh.Mesh] = None):
+    """fn(state, stacked, seed, n) -> (state, the mean per-stage losses of
+    `n` steps) (``mesh.py:389-428``): `stacked` holds K batches stacked
+    (K, b, ...), and each step takes batch ``state.step % K``, so chains
+    compose exactly like single steps."""
+    step_fn = make_train_step(imagen, optimizer, ema_decay, mesh=mesh)
+
+    def chain(state: TrainState, stacked: Dict[str, torch.Tensor], seed: int, n: int):
+        k = next(iter(stacked.values())).shape[0]
+        total = None
+        for _ in range(n):
+            state, losses = step_fn(state, {name: v[state.step % k] for name, v in stacked.items()},
+                                    seed)
+            total = losses if total is None else total + losses
+        return state, total / n
+
+    return chain
+
+
+def make_eval_step(imagen: Imagen, mesh: Optional[pmesh.Mesh] = None):
     """fn(batch, seed) -> the per-stage losses (num_unets,) without
     gradients (``mesh.py:431-447``): each stage's ``stage_loss`` with its
     draws from one generator seeded `seed`, in the documented order, stage
-    by stage."""
+    by stage. On a `mesh` `batch` holds this process's rows (blocks that
+    may differ by one row, ``shard_batch(even=False)``); the draws are made
+    for the whole batch, and the losses are the whole batch's means."""
 
     @torch.no_grad()
     def eval_fn(batch: Dict[str, torch.Tensor], seed: int = 0) -> torch.Tensor:
         gen = torch.Generator(device=imagen.device).manual_seed(int(seed))
-        return torch.stack([imagen.stage_loss(i, batch["image"], batch["encoding"],
-                                              batch["mask"], generator=gen)
-                            for i in range(imagen.num_unets)])
+        if mesh is None:
+            return torch.stack([imagen.stage_loss(i, batch["image"], batch["encoding"],
+                                                  batch["mask"], generator=gen)
+                                for i in range(imagen.num_unets)])
+        b = batch["image"].shape[0]
+        total = torch.tensor([b], device=imagen.device)
+        total = int(collectives.all_reduce(total, mesh.group))
+        rows = mesh.rows(total, even=False)
+        draws = [{k: v[rows] for k, v in imagen.stage_draws(i, total, gen).items()}
+                 for i in range(imagen.num_unets)]
+        losses = torch.zeros(imagen.num_unets, device=imagen.device)
+        for i in range(imagen.num_unets):
+            with pmesh.gathered(imagen.unets[i].parameters()):  # FSDP: a stage at a time
+                if b:
+                    losses[i] = imagen.stage_loss(i, batch["image"], batch["encoding"],
+                                                  batch["mask"], **draws[i])
+        if mesh.size == 1:
+            return losses
+        return collectives.all_reduce(losses * b, mesh.group) / total
 
     return eval_fn
 
 
-def device_prefetch(batches, device, size: int = 2) -> Iterator:
+def device_prefetch(batches, device, size: int = 2, mesh: Optional[pmesh.Mesh] = None,
+                    even: bool = True) -> Iterator:
     """Batches of host numpy arrays -> dicts of tensors on `device`, `size`
-    batches ahead (the one-device branch of ``mesh.py:65-106``).
+    batches ahead (``mesh.py:65-106``); on a `mesh`, each cut to this
+    process's rows first (``shard_batch``, with `even`).
 
     On a CUDA device each batch is copied into pinned host memory and sent
     with ``non_blocking=True`` on a side stream, so the copy overlaps the
@@ -341,6 +507,8 @@ def device_prefetch(batches, device, size: int = 2) -> Iterator:
     def put(batch):
         if not batch:
             return batch, None
+        if mesh is not None:
+            batch = pmesh.shard_batch(batch, mesh, even=even)
         host = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
         if not cuda:
             return host, None
@@ -620,6 +788,7 @@ def save_training_info(args, timestamp: str, unets_params: List[dict], imagen_pa
 PROGRESS_FILE = "training_progess.txt"  # [sic], the reference's file name
 CKPT_EXT = "ckpt"
 TRAIN_STATE_FILE = "train_state.ckpt"
+SHARDED_STATE_DIR = "train_state_sharded"  # the full-state dumps of mesh runs
 ORBAX_STATE_DIR = "train_state_orbax"  # the JAX package's mesh-run dumps
 
 
@@ -668,18 +837,30 @@ def _maybe_len(loader) -> Optional[int]:
 @contextmanager
 def swapped_params(state: TrainState):
     """The U-Nets run with the EMA weights inside (the raw parameters put
-    back after); without an EMA, unchanged."""
+    back after); without an EMA, unchanged. On a mesh each process swaps
+    its blocks, and ZeRO-1 all-gathers them (every process takes part)."""
     if state.ema_params is None:
         yield
         return
+    local = state.local_params()
     with torch.no_grad():
-        raw = [p.detach().clone() for p in state.params]
-        torch._foreach_copy_([p.data for p in state.params], state.ema_params)
+        raw = [t.clone() for t in local]
+        torch._foreach_copy_(local, state.ema_params)
+        pmesh.sync_params(state.params, state.plan, state.mesh)
     try:
         yield
     finally:
         with torch.no_grad():
-            torch._foreach_copy_([p.data for p in state.params], raw)
+            torch._foreach_copy_(local, raw)
+            pmesh.sync_params(state.params, state.plan, state.mesh)
+
+
+def load_dump(path: str, state: TrainState) -> TrainState:
+    """Restore a full-state dump into `state`: a ``train_state.ckpt`` of
+    either package (one device), or a sharded directory of a mesh run."""
+    if os.path.isdir(path):
+        return load_sharded_state(path, state)
+    return load_train_state(path, state)
 
 
 def MinimagenTrain(timestamp, args, unets, imagen: Imagen, train_dataloader, valid_dataloader,
@@ -708,59 +889,95 @@ def MinimagenTrain(timestamp, args, unets, imagen: Imagen, train_dataloader, val
         are used).
     :param optimizer: default: clip-50 Adam at ``args.OPTIM_LR`` with
         ``args.ACCUM_ITER`` accumulation.
-    :param mesh: must be None (multi-device training is not ported).
+    :param mesh: a ``parallel.mesh.Mesh``: every process of it runs this
+        with the same arguments and loaders (the same global batches, of
+        which each takes its rows). ``args.ZERO1`` picks the sharding where
+        the data axis has more than one process: 'on' (ZeRO-1, the
+        default), 'fsdp' or 'off'. Validation runs on the mesh. Process 0
+        writes the progress log and the U-Net checkpoints, gathered whole;
+        the full state goes to ``tmp/train_state_sharded/`` (``parallel.
+        checkpoint``: a new dump each time, a file per process and process
+        0's manifest, the older dumps removed once it is complete), which a
+        restart at any world size resumes from; a
+        restart also takes a one-device run's ``tmp/train_state.ckpt``, on a
+        mesh or not. With more than one process the watchdog is off (the
+        processes could not agree on a skipped batch).
     :return: {'best_valid_loss', 'history', 'final_step', 'perf',
         'start_step', 'start_adam_count', 'loader_s'}; every loss and
         timing of the run.
     """
-    if mesh is not None:
-        raise NotImplementedError("multi-device training (a mesh) is not ported yet")
     num_unets = imagen.num_unets
     device = imagen.device
     optimizer = optimizer if optimizer is not None else make_optimizer(
         args.OPTIM_LR, getattr(args, "ACCUM_ITER", 1))
     ema_decay = float(getattr(args, "EMA", 0.0) or 0.0)
-    state = create_train_state(imagen, optimizer, ema=ema_decay > 0.0)
+    plan = None
+    shard_mode = getattr(args, "ZERO1", "on")
+    if mesh is not None and mesh.size > 1 and shard_mode != "off":
+        make_plan = pmesh.fsdp_plan if shard_mode == "fsdp" else pmesh.zero1_plan
+        plan = make_plan(imagen.unets, mesh)
+    state = create_train_state(imagen, optimizer, ema=ema_decay > 0.0, mesh=mesh, plan=plan)
+    writer = mesh is None or mesh.rank == 0
+    if mesh is not None and mesh.size > 1:
+        timeout = None
 
-    last_dump: Optional[str] = None  # the full-state file a torn update goes back to
+    last_dump: Optional[str] = None  # the full-state dump a torn update goes back to
     restart_dir = getattr(args, "RESTART_DIRECTORY", None)
     if restart_dir is not None:
         ts_path = os.path.join(restart_dir, "tmp", TRAIN_STATE_FILE)
-        if os.path.exists(ts_path):
-            load_train_state(ts_path, state)
+        sharded_path = os.path.join(restart_dir, "tmp", SHARDED_STATE_DIR)
+        if latest_dump(sharded_path) is not None:
+            last_dump = os.path.abspath(sharded_path)
+        elif os.path.exists(ts_path):
             last_dump = os.path.abspath(ts_path)
-            print(f"Restored full train state (step {state.step}) from {ts_path}")
         elif os.path.isdir(os.path.join(restart_dir, "tmp", ORBAX_STATE_DIR)):
-            raise NotImplementedError(f"{restart_dir}/tmp holds an Orbax (multi-device) dump "
-                                      "only; Orbax checkpoints are not ported yet")
+            raise NotImplementedError(
+                f"{restart_dir}/tmp holds only an Orbax dump of the JAX package; Orbax's "
+                f"format is not ported (restart from a {TRAIN_STATE_FILE} or "
+                f"{SHARDED_STATE_DIR}/ dump)")
+        if last_dump is not None:
+            load_dump(last_dump, state)
+            print(f"Restored full train state (step {state.step}) from {last_dump}")
     start_step, start_count = state.step, state.opt_state.count
-    train_step = make_train_step(imagen, optimizer, ema_decay=ema_decay or 0.9999)
-    eval_step = make_eval_step(imagen)
+    train_step = make_train_step(imagen, optimizer, ema_decay=ema_decay or 0.9999, mesh=mesh)
+    eval_step = make_eval_step(imagen, mesh)
 
     def progress(text: str) -> None:
+        if not writer:
+            return
         with training_dir():
             with open(PROGRESS_FILE, "a") as f:
                 f.write(text)
 
-    def unet_weights(i: int) -> Dict[str, torch.Tensor]:
-        """U-Net i's validation weights (the EMA when it is kept), by name."""
-        weights = state.ema_params if state.ema_params is not None else state.params
-        return {name: t for (stage, name), t in zip(state.names, weights) if stage == i}
+    def unet_weights() -> List[Dict[str, torch.Tensor]]:
+        """Each U-Net's validation weights (the EMA when it is kept), by
+        name, whole (every process of a mesh takes part)."""
+        weights = state.ema_params if state.ema_params is not None else state.local_params()
+        weights = pmesh.full_tensors(weights, state.plan, state.mesh, state.shapes)
+        return [{name: t for (stage, name), t in zip(state.names, weights) if stage == i}
+                for i in range(num_unets)]
 
     def dump_tmp() -> None:
         nonlocal last_dump
+        weights = unet_weights()
         with training_dir("tmp"):
-            for i in range(num_unets):
-                save_unet_checkpoint(f"unet_{i}_tmp.{CKPT_EXT}", unet_weights(i))
-            save_train_state(TRAIN_STATE_FILE, state)
-            last_dump = os.path.abspath(TRAIN_STATE_FILE)
+            if writer:
+                for i in range(num_unets):
+                    save_unet_checkpoint(f"unet_{i}_tmp.{CKPT_EXT}", weights[i])
+            if mesh is None:
+                save_train_state(TRAIN_STATE_FILE, state)
+                last_dump = os.path.abspath(TRAIN_STATE_FILE)
+            else:
+                save_sharded_state(SHARDED_STATE_DIR, state)
+                last_dump = os.path.abspath(SHARDED_STATE_DIR)
 
     def restore_last_dump(error: BaseException) -> None:
         """After an update that failed halfway: the last full-state dump."""
         if last_dump is None:
             raise RuntimeError("an update failed halfway and no full-state dump exists to "
                                "restore") from error
-        load_train_state(last_dump, state)
+        load_dump(last_dump, state)
+        pmesh.sync_params(state.params, state.plan, state.mesh)
         state.torn = False
         progress(f"STATE RESTORED FROM {last_dump} (STEP {state.step})\n")
 
@@ -769,7 +986,7 @@ def MinimagenTrain(timestamp, args, unets, imagen: Imagen, train_dataloader, val
         n_batches = 0
         vbar = ProgressBar(total=_maybe_len(valid_dataloader), desc="validation")
         with swapped_params(state):
-            for vbatch in device_prefetch(valid_dataloader, device):
+            for vbatch in device_prefetch(valid_dataloader, device, mesh=mesh, even=False):
                 vbar.update()
                 if not vbatch:
                     continue
@@ -788,7 +1005,7 @@ def MinimagenTrain(timestamp, args, unets, imagen: Imagen, train_dataloader, val
         epoch_seed = fold_in(seed, epoch)
         running_train_loss = np.zeros(num_unets)
         print(f'\n{"-" * 10}Training...{"-" * 10}')
-        batch_iter = device_prefetch(train_dataloader, device)
+        batch_iter = device_prefetch(train_dataloader, device, mesh=mesh)
         batch_num = -1
         bar = ProgressBar(total=_maybe_len(train_dataloader), desc=f"epoch {epoch + 1} train")
         while True:
@@ -824,13 +1041,17 @@ def MinimagenTrain(timestamp, args, unets, imagen: Imagen, train_dataloader, val
                              f"{[round(float(i), 3) for i in losses_np]}\n")
                     print(f'\n{"-" * 10}Validation...{"-" * 10}')
                     avg_valid = validate(fold_in(epoch_seed, 10_000 + batch_num))
+                    better = [i for i, loss in enumerate(avg_valid) if loss < best_loss[i]]
                     for i, loss in enumerate(avg_valid):
                         print(f"Unet {i} avg validation loss: ", loss)
-                        if loss < best_loss[i]:
-                            best_loss[i] = loss
-                            with training_dir("state_dicts"):
-                                save_unet_checkpoint(f"unet_{i}_state_{timestamp}.{CKPT_EXT}",
-                                                     unet_weights(i))
+                    if better:
+                        weights = unet_weights()
+                        for i in better:
+                            best_loss[i] = avg_valid[i]
+                            if writer:
+                                with training_dir("state_dicts"):
+                                    save_unet_checkpoint(
+                                        f"unet_{i}_state_{timestamp}.{CKPT_EXT}", weights[i])
                     perf = timer.summary()
                     progress(f"U-Nets Avg Valid Losses: {[round(float(i), 3) for i in avg_valid]}\n"
                              f"U-Nets Best Valid Losses: {[round(float(i), 3) for i in best_loss]}"
@@ -859,7 +1080,8 @@ def MinimagenTrain(timestamp, args, unets, imagen: Imagen, train_dataloader, val
     dump_tmp()
     if state.ema_params is not None:  # the instance keeps the weights it was validated with
         with torch.no_grad():
-            torch._foreach_copy_([p.data for p in state.params], state.ema_params)
+            torch._foreach_copy_(state.local_params(), state.ema_params)
+            pmesh.sync_params(state.params, state.plan, state.mesh)
     return {"best_valid_loss": best_loss.tolist(), "history": history,
             "final_step": state.step, "perf": timer.summary(), "start_step": start_step,
             "start_adam_count": start_count, "adam_count": state.opt_state.count,

@@ -3,7 +3,8 @@ minimagen_tpu_torch.main`` trains the reference's test cascade and samples
 a PNG, as the root ``main.py`` does; the inference CLI's PNGs decode (with
 PIL, here) to the pixels it returns, which are ``Imagen.sample``'s from the
 same weights and seed rounded to uint8; the train CLI restarts from the
-directory at its dumped step; the one-device CLIs refuse ``--MESH data``."""
+directory at its dumped step; ``--MESH data`` on a missing CUDA device
+raises instead of falling back to the CPU."""
 import glob
 import json
 import os
@@ -86,9 +87,15 @@ def test_train_cli_restarts_at_the_dumped_step(demo_dir, monkeypatch, capsys):
 
 
 def test_one_device_clis_refuse_a_mesh():
-    with pytest.raises(NotImplementedError, match="more than one device"):
-        ttrain_cli.main(["--MESH", "data", "--DEVICE", "cpu"])
-    with pytest.raises(NotImplementedError, match="more than one device"):
-        tinf.main(["-d", "x", "--MESH", "data", "--DEVICE", "cpu"])
+    """``--MESH data`` on a CUDA device this machine lacks raises before any
+    work (a mesh never falls back to the CPU) and joins no process group;
+    the sharding flags parse."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device: --MESH data would train on it")
+    with pytest.raises(RuntimeError, match="does not fall back"):
+        ttrain_cli.main(["--MESH", "data", "--DEVICE", "cuda"])
+    with pytest.raises(RuntimeError, match="does not fall back"):
+        tinf.main(["-d", "x", "--MESH", "data", "--DEVICE", "cuda"])
+    assert not torch.distributed.is_initialized()
     args = ttrain_cli.build_parser().parse_args(["--ZERO1", "fsdp", "--MU_DTYPE", "bf16"])
     assert (args.ZERO1, args.MU_DTYPE, args.DEVICE) == ("fsdp", "bf16", "cuda")
