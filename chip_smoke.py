@@ -115,12 +115,36 @@ Phases, one line each with elapsed seconds; any failure exits non-zero:
    captions): colour at most 0.06 in bf16 and within 1e-3 relative L2 of
    ``Imagen.sample`` in float32. Each process counts its launches, and
    each must have launched every kernel.
+13d. mesh M3, two processes sharing the card over gloo on the mesh {data 1,
+   model 2} (``make_mesh(model_parallel=2)``: the wide kernels split over
+   the model axis by the JAX package's rule, ``parallel/tensor.py``): 2
+   float32 lite train steps against the one-device step (losses, parameters
+   and EMA within 1e-5 relative) and the process's bytes of parameters,
+   moments and EMA equal to the plan's reckoning (printed for the default
+   cascade too); a sharded dump written on {data 2} (ZeRO-1, after a step)
+   restored on {model 2}, every tensor equal bits; ``sample(mesh=)`` of the
+   cascade truncated at 0.2 (8 captions): bf16 colours at most 0.06
+   (DDIM-50), float32 within 1e-5 of ``sample()`` (DDIM-10); the default
+   cascade at full
+   width, each stage's float32 guided forward (one caption) with its
+   kernels split against the same seeded weights whole, within 1e-5. The
+   launches are the tensor-parallel calls' alone, and every kernel must
+   have launched. Gloo stages every collective through host memory: no
+   time of this phase is tensor parallelism's speed.
+13e. the tools: ``Imagen.stage_memory_analysis`` of both lite stages (8
+   captions, DDIM-10; the pass's measured peak beside the allocator's),
+   the lite cascade exported to reference ``.pth`` files and imported
+   back (``tools/torch_import.py``), sampling equal bits; a trace of 5
+   guided base steps written and read back through ``utils/profiling``
+   (its kernels' sum against the profile's, within 5%), and every trace
+   the profile phases wrote (``build/traces/``) summarized by family.
 
 The reference's default cascade (``generate.default_imagen``: Base at 64px,
 Super at 128px, t5_base through the hash encoder, 2.33B parameters, fresh
 seeded init, float32 master parameters, bf16 compute), after the lite
 objects are freed:
 
+13f. ``stage_memory_analysis`` of Base (4 captions, DDIM-10).
 14. record its kernel shapes: one guided forward per stage at 8 rows and one
    forward and backward of both stage losses at batch 2, with the hooks.
 15. every forward and backward kernel against its plain version at those
@@ -236,6 +260,7 @@ MESH_TIMING_ORDER = ("one", "off", "on", "fsdp", "fsdp", "on", "off", "one")  # 
 MESH_F32_STEPS = 2  # two processes, float32
 MESH_SAMPLE_STEPS = 10
 MESH_LOSS_RTOL, MESH_PARAM_REL = 2e-4, 1e-5  # the CPU tests' (tests/test_torch_parallel.py)
+MESH_TP_REL = 1e-5  # M3: float32 under a model axis against one device, relative
 MESH_TIMEOUT_S = 600
 SEED = 0
 DEVICE = "cuda"
@@ -295,6 +320,7 @@ class PhaseError(RuntimeError):
 
 
 LOG_PATH = os.path.join(REPO, "build", "chip_smoke.log")  # the whole log (gitignored)
+TRACE_DIR = os.path.join(REPO, "build", "traces")  # the profiles' Chrome traces (gitignored)
 _log_file = None
 
 
@@ -305,20 +331,14 @@ def log(msg):
         _log_file.flush()
 
 
-def device_kernel_times(prof):
-    """(name, device us) of every kernel in a torch.profiler trace; user
-    annotations (e.g. Optimizer.step) are ranges over kernels, not kernels."""
-    return [(e.key, e.self_device_time_total) for e in prof.key_averages()
-            if e.self_device_time_total > 0 and e.device_type.name == "CUDA"
-            and not getattr(e, "is_user_annotation", False)]
-
-
-def traced(fn, ranges=()):
-    """Run fn() under a torch.profiler trace of the card; returns the trace's
-    (name, device us) kernel items and {name: device us of the kernels
-    inside that record_function range} for each name of `ranges`; both
-    empty (zeros) when the profiler itself cannot start or stop (no CUPTI on
-    the machine). An error raised by fn() is never caught."""
+def traced(fn, ranges=(), name="trace"):
+    """Run fn() under a torch.profiler trace of the card, written as a
+    Chrome trace into TRACE_DIR/`name`; returns the trace's (name, device
+    us) kernel items and {name: device us of the kernels inside that
+    record_function range} for each name of `ranges`; both empty (zeros)
+    when the profiler itself cannot start or stop (no CUPTI on the
+    machine). An error raised by fn() is never caught."""
+    from minimagen_tpu_torch.utils import profiling
     from torch.profiler import ProfilerActivity, profile
 
     items, spans = [], {name: 0.0 for name in ranges}
@@ -336,7 +356,8 @@ def traced(fn, ranges=()):
         raise
     try:
         prof.stop()
-        items = device_kernel_times(prof)
+        profiling.save_trace(prof, os.path.join(TRACE_DIR, name))
+        items = profiling.kernel_times(prof)
         for e in prof.key_averages():
             if e.key in spans and e.device_type.name == "CPU":
                 spans[e.key] = max(spans[e.key], e.device_time_total)
@@ -347,9 +368,8 @@ def traced(fn, ranges=()):
 
 def kernel_families(items, steps):
     """Device ms per step of each kernel family of
-    minimagen_tpu_torch/ab_times.py (attention by kind, GroupNorm; by kernel
-    name) among trace items."""
-    from minimagen_tpu_torch.ab_times import family_ms
+    ``utils/profiling.py::op_category`` among trace items."""
+    from minimagen_tpu_torch.utils.profiling import family_ms
 
     return family_ms(items, steps)
 
@@ -1060,7 +1080,8 @@ def profile_steps(imagen, captions, steps=5):
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
         handles = stem_ranges(imagen)
         try:
-            kernels_us, spans = traced(run, ranges=("stem",))
+            kernels_us, spans = traced(run, ranges=("stem",),
+                                       name=f"steps_{size}px_stage{stage}")
         finally:
             for h in handles:
                 h.remove()
@@ -1414,7 +1435,7 @@ def profile_train(run, steps=5):
     t0 = time.perf_counter()
     go()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    items, _ = traced(go)
+    items, _ = traced(go, name="train")
     busy_ms = sum(us for _, us in items) / 1e3 / steps
     log(f"  train step: wall {wall_ms:.2f} ms/step, device busy {busy_ms:.2f} ms/step "
         f"({'not measured' if busy_ms == 0 else f'{100 * busy_ms / wall_ms:.0f}%'})")
@@ -1495,7 +1516,8 @@ def stem_kernels(shape, calls=5):
         sync()
 
     go()
-    items = sorted(traced(go)[0], key=lambda kv: -kv[1])
+    items = sorted(traced(go, name="stem_" + "x".join(map(str, shape)))[0],
+                   key=lambda kv: -kv[1])
     for name, us in items:
         log(f"    {us / 1e3 / calls:8.3f} ms/call  {name[:90]}")
     return [(name, us / 1e3 / calls) for name, us in items]
@@ -2122,31 +2144,23 @@ def _mesh_imagen(dtype):
         return lite_imagen("t5_tiny", dtype=dtype, param_dtype=torch.float32, device=DEVICE)
 
 
-def _state_bytes(state):
-    """Bytes of this process's parameters (whole where replicated, its
-    shard under FSDP), moments, accumulators and EMA."""
-    from minimagen_tpu_torch.parallel.mesh import SHARD_ATTR
-
-    opt = state.opt_state
-    params = [getattr(p, SHARD_ATTR).local if hasattr(p, SHARD_ATTR) else p for p in state.params]
-    tensors = [*params, *opt.mu, *opt.nu, *(opt.acc_grads or []), *(state.ema_params or [])]
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
 def mesh_train_modes(mesh, dtype, steps, timed=0, order=("one", "off", "on", "fsdp")):
     """`steps` train steps of the lite cascade at batch MESH_BATCH (this
     process's rows on the mesh) in each mode of `order`: one device on the
     whole batch, off (data parallel), on (ZeRO-1) or fsdp on `mesh`. Each
     run starts from the same init, Adam with a bf16 first moment (the
     committed recipe) and the EMA; per mode, a list of its runs' losses,
-    whole parameters and EMA (float32, on the card), the state's bytes, the
-    peak bytes the run allocated above what the process held before it, and
-    host ms per step over the last `timed` steps. The launch counts are
-    the mesh modes' runs only, each counted from 0."""
+    whole parameters and EMA (float32, on the card), the state's bytes and
+    the plan's reckoning of them, the peak bytes the run allocated above
+    what the process held before it, and host ms per step over the last
+    `timed` steps. Mode tp is tensor parallelism over the mesh's model axis
+    (the default rule). The launch counts are the mesh modes' runs only,
+    each counted from 0."""
     import torch
     from minimagen_tpu_torch.ops import kernels
     from minimagen_tpu_torch.parallel import mesh as pmesh
-    from minimagen_tpu_torch.training import DATA_SEED, create_train_state, make_optimizer, make_train_step
+    from minimagen_tpu_torch.training import (
+        DATA_SEED, create_train_state, make_optimizer, make_train_step, state_bytes)
 
     batch = {k: v.to(DEVICE) for k, v in _train_batch(MESH_BATCH).items()}
     out, launches = {}, {}
@@ -2156,13 +2170,15 @@ def mesh_train_modes(mesh, dtype, steps, timed=0, order=("one", "off", "on", "fs
         torch.cuda.reset_peak_memory_stats()
         imagen = _mesh_imagen(dtype)
         on_mesh = mode != "one"
-        plan = {"on": pmesh.zero1_plan, "fsdp": pmesh.fsdp_plan}.get(mode)
+        plan = {"on": pmesh.zero1_plan, "fsdp": pmesh.fsdp_plan,
+                "tp": pmesh.replicated_plan}.get(mode)
         opt = make_optimizer(1e-4, mu_dtype=torch.bfloat16)
         state = create_train_state(imagen, opt, ema=True, mesh=mesh if on_mesh else None,
                                    plan=plan(imagen.unets, mesh) if plan else None)
         step = make_train_step(imagen, opt, ema_decay=EMA_DECAY, mesh=mesh if on_mesh else None)
         rows = pmesh.shard_batch(batch, mesh) if on_mesh else batch
-        nbytes = _state_bytes(state)
+        nbytes = state_bytes(state)
+        reckoned = pmesh.reckon_state_bytes(state.shapes, state.plan, state.mesh, mu_bytes=2)
         kernels.reset_launch_counts()
         losses, t0 = [], None
         for i in range(steps):
@@ -2180,7 +2196,7 @@ def mesh_train_modes(mesh, dtype, steps, timed=0, order=("one", "off", "on", "fs
             ts, state.plan, state.mesh, state.shapes)])
         out.setdefault(mode, []).append(dict(
             losses=torch.stack(losses).float(), params=whole(state.local_params()),
-            ema=whole(state.ema_params), bytes=nbytes, peak=peak, ms=ms))
+            ema=whole(state.ema_params), bytes=nbytes, reckoned=reckoned, peak=peak, ms=ms))
         del imagen, state, step
         torch.cuda.empty_cache()
     return out, launches
@@ -2333,17 +2349,23 @@ def mesh_rank(group, captions):
 def reckoned_state_bytes(imagen, world):
     """Per-process bytes of float32 parameters, a bf16 first moment, float32
     second moment and float32 EMA under off, on (ZeRO-1) and fsdp at data
-    size `world`, from the plan over the U-Nets' shapes (no process)."""
+    size `world`, and under tensor parallelism over a model axis of
+    `world` (tp), from the plans over the U-Nets' shapes (no process)."""
     import torch
     from minimagen_tpu_torch.parallel import mesh as pmesh
     from minimagen_tpu_torch.parallel.collectives import Group
 
-    mesh = pmesh.Mesh(Group(None, tuple(range(world)), 0, "gloo", torch.device("cpu")))
-    plan = pmesh.zero1_plan(imagen.unets, mesh)
-    sizes = [p.numel() for u in imagen.unets for p in u.parameters()]
-    local = [n // world if a is not None else n for n, a in zip(sizes, plan.axes)]
-    return {"off": 14 * sum(sizes), "on": 4 * sum(sizes) + 10 * sum(local),
-            "fsdp": 14 * sum(local)}
+    cpu = torch.device("cpu")
+    data = pmesh.Mesh(Group(None, tuple(range(world)), 0, "gloo", cpu))
+    model = pmesh.Mesh(Group(None, (0,), 0, "gloo", cpu),
+                       Group(None, tuple(range(world)), 0, "gloo", cpu),
+                       Group(None, tuple(range(world)), 0, "gloo", cpu))
+    shapes = [p.shape for u in imagen.unets for p in u.parameters()]
+    plans = {"off": (None, None), "on": (pmesh.zero1_plan(imagen.unets, data), data),
+             "fsdp": (pmesh.fsdp_plan(imagen.unets, data), data),
+             "tp": (pmesh.replicated_plan(imagen.unets, model), model)}
+    return {mode: pmesh.reckon_state_bytes(shapes, plan, mesh, mu_bytes=2)
+            for mode, (plan, mesh) in plans.items()}
 
 
 def mesh_two_processes(captions):
@@ -2400,6 +2422,7 @@ def mesh_two_processes(captions):
         want = reckoned_state_bytes(imagen, 2)
         log(f"  reckoned per process at 2 processes, {name} cascade ({n / 1e6:.1f}M parameters): "
             + ", ".join(f"{m} {b / 1e9:.3f} GB" for m, b in want.items()))
+        want.pop("tp")  # M3's
         if name == "lite":
             measured = {m: ranks[0]["train"][m]["bytes"] for m in want}
             if measured != want:
@@ -2407,6 +2430,302 @@ def mesh_two_processes(captions):
     if failures:
         raise PhaseError("; ".join(failures))
     return {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+
+
+def _whole_state(state):
+    """Every kind of `state` (parameters, moments, EMA) whole, float32, on
+    the card (every process of its mesh takes part)."""
+    from minimagen_tpu_torch.parallel import mesh as pmesh
+
+    opt = state.opt_state
+    kinds = {"params": state.local_params(), "mu": opt.mu, "nu": opt.nu, "ema": state.ema_params}
+    return {k: [t.float() for t in pmesh.full_tensors(ts, state.plan, state.mesh, state.shapes)]
+            for k, ts in kinds.items()}
+
+
+def mesh_tp_rank(group, captions, dump_dir):
+    """M3, in each of two processes sharing cuda:0 over gloo, on the mesh
+    {data 1, model 2} (tensor parallelism by the default rule): the float32
+    lite train step against the one-device step and the state's bytes
+    against the plan's reckoning; a sharded dump written on {data 2} and
+    restored on {model 2}; ``sample(mesh=)`` of the lite cascade, bf16
+    colour and float32 against ``sample()``; each default-cascade stage's
+    float32 guided forward, placed over the model axis, against the same
+    seeded weights on one device. Returns numbers; the parent holds them.
+    The launches are those of the tensor-parallel calls alone, each counted
+    from 0."""
+    import gc
+
+    import torch
+    from minimagen_tpu_torch.generate import default_imagen, load_lite
+    from minimagen_tpu_torch.ops import kernels
+    from minimagen_tpu_torch.parallel import checkpoint as pckpt
+    from minimagen_tpu_torch.parallel import mesh as pmesh
+    from minimagen_tpu_torch.parallel import tensor
+    from minimagen_tpu_torch.quality import color_metric
+    from minimagen_tpu_torch.training import (
+        DATA_SEED, create_train_state, make_optimizer, make_train_step)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    data_mesh = pmesh.make_mesh(group)  # {data 2}
+    mesh = pmesh.make_mesh(group, model_parallel=2)  # {data 1, model 2}
+    out = {"rank": mesh.world.rank, "shape": mesh.shape, "seconds": {}}
+    t0 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        sync()
+        out["seconds"][name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    runs, launches = mesh_train_modes(mesh, torch.float32, MESH_F32_STEPS, order=("one", "tp"))
+    one, tp = runs["one"][0], runs["tp"][0]
+    out["train"] = dict(loss_rtol=float(((tp["losses"] - one["losses"]).abs()
+                                         / one["losses"].abs()).max()),
+                        params=_rel(tp["params"], one["params"]), ema=_rel(tp["ema"], one["ema"]),
+                        bytes=tp["bytes"], reckoned=tp["reckoned"], one_bytes=one["bytes"],
+                        peak=tp["peak"])
+    lap("train")
+
+    # a dump of {data 2} (ZeRO-1, after one step) restored on {model 2}
+    batch = {k: v.to(DEVICE) for k, v in _train_batch(MESH_BATCH).items()}
+    opt = make_optimizer(1e-4, mu_dtype=torch.bfloat16)
+    imagen = _mesh_imagen(torch.float32)
+    state = create_train_state(imagen, opt, ema=True, mesh=data_mesh,
+                               plan=pmesh.zero1_plan(imagen.unets, data_mesh))
+    step = make_train_step(imagen, opt, ema_decay=EMA_DECAY, mesh=data_mesh)
+    state, _ = step(state, pmesh.shard_batch(batch, data_mesh), seed=DATA_SEED)
+    pckpt.save_sharded_state(dump_dir, state)
+    want = _whole_state(state)
+    del imagen, state, step
+    imagen = _mesh_imagen(torch.float32)
+    state = create_train_state(imagen, opt, ema=True, mesh=mesh)
+    pckpt.load_sharded_state(dump_dir, state)
+    got = _whole_state(state)
+    out["dump"] = dict(step=state.step, split=sum(a is not None for a in state.plan.model_axes),
+                       equal={k: all(torch.equal(a, b) for a, b in zip(got[k], want[k]))
+                              for k in want})
+    del imagen, state, got, want
+    torch.cuda.empty_cache()
+    lap("dump")
+
+    gen = lambda: torch.Generator(device=DEVICE).manual_seed(SEED)  # noqa: E731
+    for dtype, steps in ((torch.bfloat16, SAMPLE_STEPS), (torch.float32, MESH_SAMPLE_STEPS)):
+        kw = dict(cond_scale=COND_SCALE, sampler="ddim", sample_steps=steps,
+                  sr_start_noise_levels=0.2, cache_interval=None)
+        imagen = load_lite(device=DEVICE, dtype=dtype)
+        embeds, masks = imagen.encode_text(captions)
+        ref = imagen.sample(text_embeds=embeds, text_masks=masks, generator=gen(), **kw)
+        kernels.reset_launch_counts()
+        base, final = imagen.sample(text_embeds=embeds, text_masks=masks, mesh=mesh,
+                                    generator=gen(), return_all_stage_outputs=True, **kw)
+        sync()
+        launches[f"sample(mesh=) {dtype}"] = dict(kernels.LAUNCHES)
+        split = sum(tensor.is_placed(m) for u in imagen.unets for m in u.modules()
+                    if not list(m.children()))
+        if dtype == torch.bfloat16:
+            out["sample_bf16"] = dict(
+                base=color_metric(base.float().cpu().numpy(), captions),
+                trunc=color_metric(final.float().cpu().numpy(), captions),
+                finite=bool(torch.isfinite(final).all()), shape=tuple(final.shape), split=split)
+        else:
+            out["sample_f32"] = dict(rel=_rel(final, ref), equal=bool(torch.equal(final, ref)))
+        del imagen, ref, base, final
+        torch.cuda.empty_cache()
+        lap(f"sample {dtype}")
+
+    # the default cascade at full width: one guided forward per stage
+    big = default_imagen(device=DEVICE, seed=SEED, dtype=torch.float32)
+    embeds, masks = big.encode_text(captions[:1])
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    inputs = []
+    for stage, size in enumerate(big.image_sizes):
+        x = torch.randn(1, size, size, 3, generator=g, device=DEVICE)
+        low = torch.rand(1, size, size, 3, generator=g, device=DEVICE) if stage else None
+        inputs.append(dict(x=x, low=low))
+
+    def forward(stage):
+        x, low = inputs[stage]["x"], inputs[stage]["low"]
+        with torch.inference_mode():
+            return big._cfg_forward(
+                stage, x, torch.full((1,), 500, device=DEVICE), text_embeds=embeds,
+                text_mask=masks, lowres_cond_img=low,
+                lowres_noise_times=torch.full((1,), 200, device=DEVICE) if stage else None,
+                cond_scale=COND_SCALE)
+
+    whole = [forward(stage) for stage in range(big.num_unets)]
+    full_bytes = sum(p.numel() * p.element_size() for p in big.unets.parameters())
+    placed = tensor.place_model(big.unets, mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    split = [forward(stage) for stage in range(big.num_unets)]
+    sync()
+    launches["default forward"] = dict(kernels.LAUNCHES)
+    out["default"] = dict(rel=[_rel(a, b) for a, b in zip(split, whole)], placed=placed,
+                          finite=all(bool(torch.isfinite(a).all()) for a in split),
+                          param_bytes=sum(p.numel() * p.element_size()
+                                          for p in big.unets.parameters()),
+                          full_bytes=full_bytes)
+    del big, whole, split
+    torch.cuda.empty_cache()
+    lap("default")
+    out["launches"] = {k: sum(c[k] for c in launches.values()) for k in kernels.LAUNCHES}
+    return out
+
+
+def mesh_tensor_parallel(captions):
+    """M3: two processes on the one card over gloo with a model axis of 2;
+    each one's numbers held to float32 within MESH_TP_REL of one device
+    (bf16 colour to COLOR_LIMIT), its bytes to the plan's reckoning, the
+    dump restored to the bit. Gloo stages every collective through host
+    memory, so no time here is tensor parallelism's speed."""
+    import shutil
+
+    import torch
+    from minimagen_tpu_torch.generate import default_imagen
+    from minimagen_tpu_torch.parallel import collectives
+
+    dump_dir = os.path.join(REPO, "build", "m3_dump")
+    shutil.rmtree(dump_dir, ignore_errors=True)
+    try:
+        ranks = collectives.spawn("chip_smoke:mesh_tp_rank", 2, (captions, dump_dir),
+                                  backend="gloo", devices=["cuda:0", "cuda:0"],
+                                  timeout=MESH_TIMEOUT_S, echo=log)
+    finally:
+        shutil.rmtree(dump_dir, ignore_errors=True)
+    failures = []
+    for r in ranks:
+        tag = f"  rank {r['rank']} {r['shape']}:"
+        t = r["train"]
+        log(f"{tag} float32 train step against one device: loss {t['loss_rtol']:.2e}, params "
+            f"{t['params']:.2e}, EMA {t['ema']:.2e} rel L2 (limit {MESH_TP_REL}); params + moments"
+            f" + EMA {t['bytes'] / 1e9:.4f} GB at rest (reckoned {t['reckoned'] / 1e9:.4f}; one "
+            f"device {t['one_bytes'] / 1e9:.4f}), peak {t['peak'] / 1e9:.3f} GB allocated in the "
+            "steps")
+        if not (t["loss_rtol"] <= MESH_TP_REL and t["params"] <= MESH_TP_REL
+                and t["ema"] <= MESH_TP_REL):
+            failures.append(f"rank {r['rank']} tensor-parallel train step")
+        if t["bytes"] != t["reckoned"]:
+            failures.append(f"rank {r['rank']} state bytes {t['bytes']} != reckoned {t['reckoned']}")
+        d = r["dump"]
+        log(f"{tag} dump of {{data 2}} restored on {{model 2}} ({d['split']} kernels split): "
+            f"step {d['step']}, equal bits {d['equal']}")
+        if not all(d["equal"].values()):
+            failures.append(f"rank {r['rank']} dump restored across mesh shapes")
+        s, f = r["sample_bf16"], r["sample_f32"]
+        log(f"{tag} bf16 sample(mesh=) {s['shape']} ({s['split']} layers split): base color_dist "
+            f"{s['base']:.4f}, trunc/sr0.2 {s['trunc']:.4f} (limit {COLOR_LIMIT}); float32 against "
+            f"sample(): {f['rel']:.2e} rel L2 (limit {MESH_TP_REL}), equal bits {f['equal']}")
+        if not (s["finite"] and s["base"] <= COLOR_LIMIT and s["trunc"] <= COLOR_LIMIT
+                and f["rel"] <= MESH_TP_REL):
+            failures.append(f"rank {r['rank']} tensor-parallel sample(mesh=)")
+        b = r["default"]
+        log(f"{tag} default cascade, float32 guided forward per stage against one device: "
+            + ", ".join(f"{x:.2e}" for x in b["rel"]) + f" rel L2 (limit {MESH_TP_REL}); "
+            f"{b['placed']} kernels split; parameters {b['param_bytes'] / 1e9:.3f} GB a process "
+            f"({b['full_bytes'] / 1e9:.3f} whole)")
+        if not (b["finite"] and max(b["rel"]) <= MESH_TP_REL):
+            failures.append(f"rank {r['rank']} default cascade under model 2")
+        log(f"{tag} launches {r['launches']}; seconds (gloo through the host: not tensor "
+            "parallelism's speed) " + ", ".join(f"{k} {v:.1f}" for k, v in r["seconds"].items()))
+        require_launched(r["launches"], f"rank {r['rank']}",
+                         names=tuple(KERNEL_INFO) + tuple(BACKWARD_INFO))
+    with torch.device("meta"):  # shapes only
+        big = default_imagen(device="meta")
+    want = reckoned_state_bytes(big, 2)
+    log("  reckoned per process, default cascade (float32 parameters, bf16 first moment, EMA): "
+        + ", ".join(f"{m} {b / 1e9:.3f} GB" for m, b in want.items()))
+    if failures:
+        raise PhaseError("; ".join(failures))
+    return {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+
+
+def tools_phase(imagen, captions):
+    """The tools on the card: ``stage_memory_analysis`` of both lite stages
+    beside the allocator's peak; the committed lite cascade exported to
+    reference ``.pth`` files and imported back (``tools/torch_import.py``),
+    its samples equal bits to the original's; the trace of a guided lite
+    stage pass read back through ``utils/profiling`` against the profile's
+    own sum of kernel times, and the traces the profile phases wrote,
+    summarized."""
+    import shutil
+
+    import torch
+    from minimagen_tpu_torch.tools.torch_import import (
+        convert_reference_training_dir, export_unet_state_dict)
+    from minimagen_tpu_torch.utils import profiling
+
+    embeds, masks = imagen.encode_text(captions)
+    text_len = embeds.shape[1]
+    for stage in range(imagen.num_unets):
+        r = imagen.stage_memory_analysis(stage, batch_size=len(captions), text_len=text_len,
+                                         sample_steps=MESH_SAMPLE_STEPS)
+        log(f"  stage_memory_analysis lite stage {stage} ({len(captions)} captions, DDIM-"
+            f"{MESH_SAMPLE_STEPS}): " + ", ".join(f"{k} {v / 2 ** 20:.1f} MiB"
+                                                   for k, v in r.items())
+            + f"; allocator peak {torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB")
+        if not r.get("temp_size_in_bytes", 0) > 0:
+            raise PhaseError(f"stage_memory_analysis of stage {stage} measured no pass")
+
+    ref_dir = os.path.join(REPO, "build", "tools_reference")
+    shutil.rmtree(ref_dir, ignore_errors=True)
+    try:
+        write_lite_parameters(os.path.join(ref_dir, "parameters"))
+        os.makedirs(os.path.join(ref_dir, "state_dicts"))
+        os.makedirs(os.path.join(ref_dir, "tmp"))
+        for i, unet in enumerate(imagen.unets):
+            torch.save(export_unet_state_dict(unet.state_dict(), imagen.unet_configs[i]),
+                       os.path.join(ref_dir, "state_dicts", f"unet_{i}_state_lite.pth"))
+        back = convert_reference_training_dir(ref_dir, device=DEVICE, dtype=imagen.dtype,
+                                              param_dtype=next(imagen.unets.parameters()).dtype)
+    finally:
+        shutil.rmtree(ref_dir, ignore_errors=True)
+    same = all(torch.equal(a, b) for a, b in zip(imagen.unets.parameters(),
+                                                   back.unets.parameters()))
+    kw = dict(text_embeds=embeds, text_masks=masks, cond_scale=COND_SCALE, sampler="ddim",
+              sample_steps=MESH_SAMPLE_STEPS, sr_start_noise_levels=0.2, cache_interval=None)
+    gen = lambda: torch.Generator(device=DEVICE).manual_seed(SEED)  # noqa: E731
+    want = imagen.sample(generator=gen(), **kw)
+    got = back.sample(generator=gen(), **kw)
+    log(f"  exported to reference .pth and imported back: parameters equal {same}, samples "
+        f"{tuple(got.shape)} equal bits {torch.equal(got, want)}")
+    if not (same and torch.equal(got, want)):
+        raise PhaseError("the reference .pth round trip changed the lite cascade")
+    del back
+
+    b = len(captions)
+    gen0 = torch.Generator(device=DEVICE).manual_seed(SEED)
+    init = torch.randn(b, 64, 64, 3, generator=gen0, device=DEVICE)
+
+    def run():
+        imagen.sample_stage(0, embeds, masks, COND_SCALE, init_noise=init, sampler="ddim",
+                            sample_steps=5, cache_interval=None)
+
+    run()
+    trace_dir = os.path.join(TRACE_DIR, "tools")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    with profiling.trace(trace_dir) as prof:
+        run()
+    listed = sum(us for _, us in profiling.kernel_times(prof)) / 1e6
+    busy, copies, top, cats = profiling.summarize_trace(profiling.find_trace(trace_dir))
+    seconds = profiling.traced_device_seconds(run, os.path.join(TRACE_DIR, "tools_again"))
+    log(f"  lite base stage, 5 guided DDIM steps: trace kernels {busy * 1e3:.3f} ms (profile's "
+        f"key_averages {listed * 1e3:.3f} ms; copies {copies * 1e3:.3f} ms), "
+        f"traced_device_seconds {'not measured' if seconds is None else f'{seconds * 1e3:.3f} ms'}")
+    log("    families: " + ", ".join(f"{c} {s * 1e3:.3f} ms ({100 * f:.0f}%)" for c, s, f in cats))
+    if busy > 0 and abs(busy - listed) > 0.05 * listed:
+        raise PhaseError(f"the trace file's kernels ({busy} s) disagree with the profile's "
+                         f"({listed} s)")
+    for name in sorted(os.listdir(TRACE_DIR)):
+        try:
+            busy, _, top, cats = profiling.summarize_trace(
+                profiling.find_trace(os.path.join(TRACE_DIR, name)))
+        except FileNotFoundError:
+            continue
+        log(f"  trace {name}: device {busy * 1e3:.2f} ms; " + ", ".join(
+            f"{c} {100 * f:.0f}%" for c, _, f in cats[:6]))
 
 
 class phase:
@@ -2449,6 +2768,9 @@ def main():
 
     os.makedirs(os.path.dirname(LOG_PATH), exist_ok=True)
     _log_file = open(LOG_PATH, "w")
+    import shutil
+
+    shutil.rmtree(TRACE_DIR, ignore_errors=True)
     # float32 references in full precision (no TF32 in matmuls or convs)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2545,6 +2867,12 @@ def main():
         mesh1_launches = mesh_world1(imagen, captions)
     with phase("mesh M2: two processes on the card over gloo (staged through the host)"):
         mesh2_launches = mesh_two_processes(captions)
+    with phase("mesh M3: two processes on the card, a model axis of 2 (gloo through the host: "
+               "no time here is tensor parallelism's speed)"):
+        mesh3_launches = mesh_tensor_parallel(captions)
+    with phase("tools: stage_memory_analysis, the reference .pth round trip, the traces "
+               "through utils/profiling"):
+        tools_phase(imagen, captions)
 
     # ---- the reference's default cascade ----------------------------------
     with phase("free the lite objects; build the default cascade (Base + Super, seed 0)"):
@@ -2561,6 +2889,14 @@ def main():
             f"(float32 masters, bf16 compute); allocated "
             f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
     default_captions = captions[:DEFAULT_CAPTIONS]
+    with phase("tools: stage_memory_analysis of Base"):
+        r = big.stage_memory_analysis(0, batch_size=DEFAULT_CAPTIONS, text_len=DEFAULT_MAX_WORDS,
+                                      sample_steps=MESH_SAMPLE_STEPS)
+        log(f"  Base ({DEFAULT_CAPTIONS} captions, DDIM-{MESH_SAMPLE_STEPS}): " + ", ".join(
+            f"{k} {v / 2 ** 20:.1f} MiB" for k, v in r.items())
+            + f"; allocator peak {torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB")
+        if not r.get("temp_size_in_bytes", 0) > 0:
+            raise PhaseError("stage_memory_analysis of Base measured no pass")
     with phase("record the default cascade's kernel shapes"):
         big_batch = default_train_batch()
         big_sampling, big_training = default_path_shapes(big, default_captions, big_batch)
@@ -2601,6 +2937,7 @@ def main():
     runs = {"lite sampling": launches, "lite solvers": solver_launches, **lever_paths,
             "lite learning": train_launches, **harness_launches,
             "mesh world 1": mesh1_launches, "mesh 2 processes": mesh2_launches,
+            "mesh tensor parallel": mesh3_launches,
             "default serving": serve_launches,
             "default DPM++ serving": fast_serve_launches, "default training": big_train_launches}
     for name, counts in runs.items():

@@ -30,8 +30,19 @@ What is ported so far:
   (``parallel/``): data parallelism, ZeRO-1 and FSDP over a mesh's data
   axis, ``Imagen.sample(mesh=)``, cascade-stage training groups, the
   pipelined cascade server, several hosts, and ``--MESH data`` in the CLIs
-  under ``torchrun``. Tensor parallelism over a ``model`` axis is not
-  ported.
+  under ``torchrun``; tensor parallelism over a ``model`` axis
+  (``make_mesh(model_parallel=)``: the JAX package's rule splits wide
+  kernels over it, ``parallel/tensor.py`` computes their column-parallel
+  forward), alone or with ZeRO-1, in training, sampling, the cascade
+  groups, the pipeline and the sharded dumps;
+- the tools: ``Imagen.stage_memory_analysis``, ``utils/profiling.py``
+  (``torch.profiler`` traces and their device time by kernel family) and
+  ``tools/torch_import.py`` (reference MinImagen ``.pth`` U-Nets in and
+  out, ``python -m minimagen_tpu_torch.tools.torch_import import|export``);
+- the reference's import paths (``Imagen``, ``Unet``, ``t5``,
+  ``diffusion_model``, ``helpers``, ``layers``): ``from
+  minimagen_tpu_torch.Unet import Unet, Base`` works as the reference's
+  ``from minimagen.Unet import ...`` does.
 
 Every Pallas kernel of the JAX package (multi-query and multi-head
 attention, forward and backward, with an optional mask bias; fused GroupNorm
@@ -43,5 +54,8 @@ for two checkouts on one card.
 Activations are NHWC at every public function, as in the JAX package.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
+
+# the reference's import paths (its minimagen/__init__.py exports these modules)
+from . import Imagen, Unet, diffusion_model, helpers, layers, t5  # noqa: E402,F401
 
 __version__ = "0.1.0"

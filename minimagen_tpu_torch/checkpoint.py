@@ -343,7 +343,7 @@ def _restore_trees(trees: Any, state, dst: List[torch.Tensor], what: str) -> Non
         if src is None or tuple(src.shape) != tuple(shape):
             raise ValueError(f"{what}: unet_{i}.{name} is missing or has another shape")
         if tuple(t.shape) != tuple(src.shape):
-            src = state.plan.local(idx, src, state.mesh)
+            src = state.plan.part(idx, src, state.mesh, t.shape)
         with torch.no_grad():
             t.copy_(src)
     extra = [f"{k}.{n}" for k, sd in per.items() for n in sd]

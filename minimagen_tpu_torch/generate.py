@@ -142,8 +142,10 @@ def load_minimagen(directory: str, device="cuda", dtype: torch.dtype = torch.flo
                    param_dtype: Optional[torch.dtype] = None) -> Imagen:
     """An Imagen with the configs and weights of a training directory: each
     U-Net from ``state_dicts/`` (its best validation), else from ``tmp/``
-    (the latest dump); raises if both are empty. Computes in `dtype`
-    (float32, as the JAX package loads)."""
+    (the latest dump); raises if both are empty. A reference MinImagen
+    ``.pth`` file is converted (``tools/torch_import.py``), as the JAX
+    package converts it. Computes in `dtype` (float32, as the JAX package
+    loads)."""
     imagen = _instantiate_minimagen(directory, device, dtype, param_dtype)
 
     def load_from(subdir: str) -> bool:
@@ -155,11 +157,12 @@ def load_minimagen(directory: str, device="cuda", dtype: torch.dtype = torch.flo
             if not candidates:
                 raise ValueError(f"{directory}/{subdir} holds no checkpoint of unet_{i}")
             path = os.path.join(directory, subdir, candidates[0])
-            if path.endswith(".pth"):
-                raise NotImplementedError(
-                    f"{path} is a reference MinImagen torch checkpoint; importing .pth files "
-                    "is not ported yet (ROADMAP section 1 item 6)")
-            load_unet_checkpoint(path, imagen.unets[i])
+            if path.endswith(".pth"):  # a reference MinImagen checkpoint: converted
+                from .tools.torch_import import load_reference_unet  # noqa: PLC0415
+
+                load_reference_unet(path, imagen, i)
+            else:
+                load_unet_checkpoint(path, imagen.unets[i])
         return True
 
     if not load_from("state_dicts"):
@@ -229,7 +232,7 @@ def sample_and_save(captions: List[str], *, minimagen: Optional[Imagen] = None,
     if save_directory is None:
         save_directory = datetime.now().strftime("generated_images_%Y%m%d_%H%M%S")
     mesh = (sample_args or {}).get("mesh")
-    writer = mesh is None or mesh.rank == 0
+    writer = mesh is None or mesh.is_leader
     if writer:
         cm = _output_directory(save_directory)
         with cm():

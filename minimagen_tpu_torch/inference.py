@@ -96,7 +96,7 @@ def main(argv: Optional[Sequence[str]] = None):
         if args.SEED is None:
             args.SEED = int.from_bytes(os.urandom(4), "little")
         args.SEED, save_directory = collectives.broadcast_object((args.SEED, save_directory),
-                                                                 mesh.group)
+                                                                 mesh.world)
     sample_args = sample_args_from(args)
     if mesh is not None:
         sample_args["mesh"] = mesh
@@ -104,7 +104,7 @@ def main(argv: Optional[Sequence[str]] = None):
                              training_directory=args.TRAINING_DIRECTORY,
                              sample_args=sample_args, save_directory=save_directory,
                              device=args.DEVICE)
-    if mesh is None or mesh.rank == 0:
+    if mesh is None or mesh.is_leader:
         print(json.dumps({"save_directory": os.path.abspath(save_directory),
                           "images": len(pixels), "launches": dict(kernels.LAUNCHES)}), flush=True)
     return pixels

@@ -42,7 +42,7 @@ keeps its rows, so a mesh run equals a one-device run.
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, List, Optional, Sequence, Union
+from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -546,10 +546,14 @@ class Imagen:
             this with the same captions and an equally seeded generator
             (or the same `noise`). Captions are padded by repeating the last
             one to a multiple of the data size; each process denoises its
-            rows from its rows of the whole batch's draws, and all get the
-            whole result back (padding dropped), equal to a one-device run
-            on the padded batch. U-Nets trained under FSDP are gathered one
-            stage at a time.
+            rows (by data index: a model group shares them) from its rows of
+            the whole batch's draws, and all get the whole result back
+            (padding dropped), equal to a one-device run on the padded
+            batch. U-Nets trained under FSDP are gathered one stage at a
+            time. On a ``model`` axis, wide kernels not placed yet are split
+            over it (``parallel.tensor.place_model``, the JAX package's
+            ``infer_param_shardings``) and stay so; placed ones keep their
+            placement.
         """
         if data_format not in ("NHWC", "NCHW"):
             raise ValueError(f"unknown data_format {data_format!r}")
@@ -564,6 +568,8 @@ class Imagen:
         gathered = lambda params: contextlib.nullcontext()  # noqa: E731
         if mesh is not None:
             from ..parallel.mesh import gather_rows, gathered  # noqa: PLC0415
+            from ..parallel.tensor import place_model  # noqa: PLC0415
+            place_model(self.unets, mesh)  # a model axis: wide kernels not yet placed
             pad = (-b) % mesh.size
             if pad:
                 text_embeds = torch.cat([text_embeds, text_embeds[-1:].expand(pad, -1, -1)])
@@ -729,6 +735,74 @@ class Imagen:
             lowres = resize_image_to(lowres, size, clamp_range=clamp)
         return self.p_losses(stage, resize_image_to(images, size), text_embeds=text_embeds,
                              text_mask=text_mask, lowres_cond_img=lowres, **draws)
+
+    def stage_memory_analysis(self, stage: int, *, batch_size: int = 1, text_len: int = 64,
+                              cond_scale: float = 3.0, sampler: str = "ddim",
+                              sample_steps: Optional[int] = None,
+                              params: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, int]:
+        """The memory of one full sampling pass of `stage` (the JAX
+        package's ``stage_memory_analysis``, ``imagen.py:743-779``, with its
+        field names), for zero captions of `text_len` tokens:
+
+        - ``argument_size_in_bytes``: the stage's parameters (`params`, a
+          state_dict of its U-Net, else its own) plus its inputs, as the JAX
+          function takes them: the float32 encodings, the bool masks, the
+          float32 guidance scale, for a super-resolution stage the float32
+          low-res image and the int32 noise times, and 8 bytes of
+          randomness (the JAX function's key; here the generator's 64-bit
+          seed);
+        - ``output_size_in_bytes``: the stage's float32 (b, s, s, c) output;
+        - ``temp_size_in_bytes``, on the card only: the measured peak of the
+          pass above what was allocated before it
+          (``torch.cuda.reset_peak_memory_stats`` /
+          ``max_memory_allocated``), the output included.
+
+        On the CPU the first two are returned and the third is left out (no
+        allocator statistics), as the JAX package returns the fields its
+        backend can answer. The pass runs with `params` swapped in, and the
+        U-Net's own parameters put back after."""
+        unet = self.unets[stage]
+        own = dict(unet.named_parameters())
+        params = own if params is None else params
+        if set(params) != set(own):
+            raise ValueError(f"params of unet_{stage}: {len(params)} tensors, the U-Net has "
+                             f"{len(own)} parameters")
+        size, c = self.image_sizes[stage], self.channels
+        inputs = {"text_embeds": torch.zeros(batch_size, text_len, self.text_embed_dim,
+                                             device=self.device),
+                  "text_mask": torch.ones(batch_size, text_len, dtype=torch.bool,
+                                          device=self.device)}
+        kw = {}
+        if self.unet_configs[stage].lowres_cond:
+            kw = {"lowres_cond_img": torch.zeros(batch_size, size, size, c, device=self.device),
+                  "lowres_noise_times": self.lowres_noise_schedule.get_times(
+                      batch_size, self.lowres_sample_noise_level, self.device).int()}
+        nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)  # noqa: E731
+        out = {"argument_size_in_bytes": nbytes(params.values()) + nbytes(inputs.values())
+               + nbytes(kw.values()) + 4 + 8,
+               "output_size_in_bytes": batch_size * size * size * c * 4}
+        if self.device.type != "cuda":
+            return out
+        saved = {n: p.data for n, p in own.items()}
+        try:
+            for n, p in own.items():
+                p.data = params[n].detach()
+            torch.cuda.synchronize(self.device)
+            before = torch.cuda.memory_allocated(self.device)
+            torch.cuda.reset_peak_memory_stats(self.device)
+            gen = torch.Generator(device=self.device).manual_seed(0)
+            with torch.inference_mode():
+                init = torch.randn(batch_size, size, size, c, generator=gen, device=self.device)
+                img = self.sample_stage(stage, inputs["text_embeds"], inputs["text_mask"],
+                                        cond_scale, init_noise=init, sampler=sampler,
+                                        sample_steps=sample_steps, generator=gen, **kw)
+            torch.cuda.synchronize(self.device)
+            out["temp_size_in_bytes"] = torch.cuda.max_memory_allocated(self.device) - before
+            del img, init
+        finally:
+            for n, p in own.items():
+                p.data = saved[n]
+        return out
 
     def stage_draws(self, stage: int, batch_size: int, generator: Optional[torch.Generator] = None,
                     *, times: Optional[torch.Tensor] = None,

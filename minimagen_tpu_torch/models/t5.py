@@ -30,6 +30,8 @@ from torch import nn
 
 MAX_LENGTH = 256
 
+DEFAULT_T5_NAME = "t5_small"
+
 # name -> handle / encoding dim / approx size in GB (copied from the JAX package)
 T5_VERSIONS = {
     "t5_small": {"handle": "t5-small", "dim": 512, "size": 0.24},
@@ -270,3 +272,20 @@ class TextEncoder:
         ids = torch.as_tensor(ids, device=self.device)
         mask = torch.as_tensor(mask, device=self.device)
         return self.model(ids, mask).float(), mask.bool()
+
+
+_ENCODERS = {}
+
+
+def t5_encode_text(text: List[str], name: str = "t5_base", max_length: int = MAX_LENGTH,
+                   device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Encode captions (the reference's ``t5_encode_text``, t5.py:31-84):
+    (encodings (b, L, dim) float32 with padded rows zeroed, mask (b, L)
+    bool) on `device`, by the committed local encoder of registry name
+    `name` or, for a name whose weights need a download, the hash encoder
+    (:class:`TextEncoder`; nothing is downloaded). The encoder is built once
+    per name and device."""
+    key = (name, str(torch.device(device)))
+    if key not in _ENCODERS:
+        _ENCODERS[key] = TextEncoder(name, device)
+    return _ENCODERS[key].encode(list(text), max_length)

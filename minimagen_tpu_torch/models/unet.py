@@ -149,6 +149,10 @@ SuperTest = _preset("SuperTest", dict(
 ))
 
 
+# the reference's class name: its presets and JSON files name configs "Unet"
+Unet = UnetConfig
+
+
 class UnetModel(nn.Module):
     """The U-Net built from a :class:`UnetConfig`, computing in `dtype`
     with its parameters held in `param_dtype` (default: `dtype`) and cast at

@@ -223,3 +223,9 @@ class GaussianDiffusion:
         if not np.all(np.isfinite(res)):
             raise ValueError("non-finite UniPC corrector coefficients")
         return res
+
+
+def create_gaussian_diffusion(timesteps: int, device="cuda") -> GaussianDiffusion:
+    """The schedule of `timesteps` steps on `device` (the JAX package's
+    constructor function, ``ops/diffusion.py:291``)."""
+    return GaussianDiffusion(timesteps, device)

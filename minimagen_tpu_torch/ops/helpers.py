@@ -5,7 +5,7 @@ a ``jax.random`` key; the two give different numbers from the same seed.
 """
 from __future__ import annotations
 
-from typing import Any, Optional, Sequence
+from typing import Any, Callable, Optional, Sequence
 
 import torch
 
@@ -19,6 +19,25 @@ def default(val: Any, d: Any) -> Any:
     if exists(val):
         return val
     return d() if callable(d) else d
+
+
+def identity(t, *args, **kwargs):
+    return t
+
+
+def maybe(fn: Callable) -> Callable:
+    """`fn` applied only to an input that is not None (reference
+    helpers.py:81-95)."""
+
+    def inner(x):
+        return x if not exists(x) else fn(x)
+
+    return inner
+
+
+def log(t: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """Natural log of `t` clamped below at `eps` (reference helpers.py:74-78)."""
+    return torch.log(t.clamp(min=eps))
 
 
 def cast_tuple(val: Any, length: Optional[int] = None) -> tuple:

@@ -19,16 +19,28 @@ from . import collectives
 from .mesh import Mesh, shard_batch
 
 
-def make_stage_meshes(num_stages: int, group: Optional[collectives.Group] = None) -> List[Mesh]:
+def make_stage_meshes(num_stages: int, group: Optional[collectives.Group] = None, *,
+                      model_parallel: int = 1) -> List[Mesh]:
     """The world (or `group`) split into `num_stages` equal groups of
-    consecutive ranks, each a mesh; every process calls this, and is a
-    member (``mesh.rank >= 0``) of exactly one."""
+    consecutive ranks, each a ('data', 'model') mesh with a model axis of
+    `model_parallel` consecutive ranks (``cascade.py:27-41``); every process
+    calls this, and is a member (``mesh.rank >= 0``) of exactly one."""
     group = group if group is not None else collectives.world()
     if group.size % num_stages:
         raise ValueError(f"{group.size} processes do not split into {num_stages} stage groups")
     per = group.size // num_stages
-    return [Mesh(collectives.new_group(group.ranks[s * per:(s + 1) * per]))
-            for s in range(num_stages)]
+    if per % model_parallel:
+        raise ValueError(f"stage groups of {per} processes do not divide by model_parallel="
+                         f"{model_parallel}")
+    meshes = []
+    for s in range(num_stages):
+        stage = collectives.new_group(group.ranks[s * per:(s + 1) * per])
+        if model_parallel == 1:
+            meshes.append(Mesh(stage))
+        else:
+            data, model = collectives.mesh_groups(stage, model_parallel)
+            meshes.append(Mesh(data, model, stage))
+    return meshes
 
 
 def make_stage_train_step(imagen, stage: int, optimizer: training.ClippedAdam,
@@ -77,7 +89,7 @@ class CascadeParallelTrainer:
         rows = {k: torch.as_tensor(v, device=self.imagen.device) for k, v in rows.items()}
         self.state, loss = self.step_fn(self.state, rows, seed)
         losses = torch.zeros(self.imagen.num_unets, device=self.imagen.device)
-        if self.mesh.rank == 0:
+        if self.mesh.is_leader:
             losses[self.stage] = loss
         return collectives.all_reduce(losses, self.world).cpu().numpy()
 

@@ -17,6 +17,9 @@ use gloo, and gloo takes host tensors: under gloo (and only there) a
 collective on a CUDA tensor copies it to host memory, runs there, and
 copies the result back. :func:`init_process` says so in a log line.
 
+A mesh with a ``model`` axis splits a group into data groups and model
+groups (:func:`mesh_groups`); every collective takes the group it runs over.
+
 The collectives take flat tensors: :func:`all_reduce`, :func:`reduce_scatter`
 (under gloo an all-reduce of which each rank keeps its chunk),
 :func:`all_gather`, :func:`broadcast`, :func:`broadcast_object`, :func:`isend`,
@@ -137,6 +140,26 @@ def new_group(ranks: Sequence[int]) -> Group:
     me = dist.get_rank()
     backend = dist.get_backend()
     return Group(pg, ranks, ranks.index(me) if me in ranks else -1, backend, _device(backend))
+
+
+def mesh_groups(group: Group, model_parallel: int) -> Tuple[Group, Group]:
+    """This process's data group and model group of `group` laid out as a
+    (data, model) grid of ``group.size // model_parallel`` rows: the member
+    at position r sits at data index r // model_parallel and model index
+    r % model_parallel (``np.reshape(n // mp, mp)``, as the JAX package's
+    ``make_mesh`` places devices), so a model group is made of consecutive
+    ranks. Every process of the world calls this, in the same order: it
+    makes every group of the grid (the model groups, then the data groups),
+    and a process outside `group` gets groups it is no member of."""
+    n, mp = group.size, int(model_parallel)
+    if mp < 1 or n % mp:
+        raise ValueError(f"{n} processes do not divide into model groups of {mp}")
+    mine = group.ranks.index(dist.get_rank()) if dist.get_rank() in group.ranks else None
+    models = [new_group(group.ranks[d * mp:(d + 1) * mp]) for d in range(n // mp)]
+    datas = [new_group(group.ranks[m::mp]) for m in range(mp)]
+    if mine is None:
+        return datas[0], models[0]
+    return datas[mine % mp], models[mine // mp]
 
 
 def destroy() -> None:

@@ -50,9 +50,15 @@ def initialize_distributed(device=None) -> bool:
 
 
 def make_global_mesh(*, model_parallel: int = 1, device=None) -> Mesh:
-    """The mesh over every process of every host (the data axis runs over
-    the world's ranks in order: a host's processes are neighbours)."""
+    """The mesh over every process of every host: the world's ranks in
+    order, a host's processes neighbours, and each model group of
+    `model_parallel` consecutive ranks within one host (the processes per
+    host, torchrun's ``LOCAL_WORLD_SIZE``, must divide by it)."""
     initialize_distributed(device)
+    local = os.environ.get("LOCAL_WORLD_SIZE")
+    if local is not None and int(local) % model_parallel:
+        raise ValueError(f"{local} processes per host do not divide by model_parallel="
+                         f"{model_parallel}: a model group would span hosts")
     return make_mesh(model_parallel=model_parallel, device=device)
 
 

@@ -11,7 +11,10 @@ next request at once. At most `depth` sends per process wait unreceived.
 The numbers are ``Imagen.sample``'s at the same generator: each stage takes
 the draws one generator would give it there, because the sender passes its
 generator's state on with the images (``generator.get_state``), and within
-a group each process keeps its rows of the whole batch's draws.
+a group each process keeps its rows of the whole batch's draws. A stage
+group may have a ``model`` axis (``make_stage_meshes(model_parallel=)``):
+its stage's wide kernels are split over it, and each process sends to the
+process of the same data and model index in the next group.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from ..models.imagen import rows_of_draws
 from . import collectives
 from .cascade import make_stage_meshes
 from .mesh import Mesh, gather_rows
+from .tensor import place_model
 
 
 class CascadePipelineServer:
@@ -48,6 +52,7 @@ class CascadePipelineServer:
             raise ValueError(f"{len(self.meshes)} stage groups for {imagen.num_unets} stages")
         self.stage = next(s for s, m in enumerate(self.meshes) if m.rank >= 0)
         self.mesh = self.meshes[self.stage]
+        place_model([imagen.unets[self.stage]], self.mesh)  # a model axis: split its kernels
         self.options = dict(cond_scale=float(cond_scale), sampler=sampler,
                             sample_steps=sample_steps, grid=grid, cache_interval=cache_interval,
                             lowres_sample_noise_level=lowres_sample_noise_level,
@@ -57,8 +62,9 @@ class CascadePipelineServer:
         self._sends: List[Any] = []
 
     def _peer(self, stage: int) -> int:
-        """The global rank of this process's counterpart in group `stage`."""
-        return self.meshes[stage].group.ranks[self.mesh.rank]
+        """The global rank of this process's counterpart in group `stage`
+        (the same data and model index)."""
+        return self.meshes[stage].world.ranks[self.mesh.world.rank]
 
     def submit(self, text_embeds, text_masks=None, *, seed: int = 0) -> Optional[torch.Tensor]:
         """One request through this process's stage, its generator seeded

@@ -96,16 +96,16 @@ def _fresh_imagen(unets_params, imagen_params, args) -> Imagen:
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = build_parser().parse_args(argv)
     mesh = make_mesh(device=args.DEVICE) if args.MESH == "data" else None
-    writer = mesh is None or mesh.rank == 0
+    writer = mesh is None or mesh.is_leader
     timestamp = args.timestamp or datetime.now().strftime("%Y%m%d_%H%M%S")
     if mesh is not None:
         args.DEVICE = str(mesh.device)
-        timestamp = collectives.broadcast_object(timestamp, mesh.group)
+        timestamp = collectives.broadcast_object(timestamp, mesh.world)
     dir_path = f"./training_{timestamp}"
     if writer:
         training_dir = create_directory(dir_path)
     if mesh is not None:
-        collectives.barrier(mesh.group)
+        collectives.barrier(mesh.world)
         training_dir = create_directory(dir_path)
 
     if args.RESTART_DIRECTORY is not None:

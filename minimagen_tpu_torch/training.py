@@ -71,6 +71,7 @@ from .models.unet import UnetConfig
 from .parallel import collectives
 from .parallel import mesh as pmesh
 from .parallel.checkpoint import latest_dump, load_sharded_state, save_sharded_state
+from .parallel.tensor import place_model
 from .utils.profiling import StepTimer
 from .utils.progress import ProgressBar
 
@@ -274,6 +275,16 @@ class TrainState:
         return [pmesh.full_shape(p) for p in self.params]
 
 
+def state_bytes(state: TrainState) -> int:
+    """The bytes this process holds of `state`'s parameters (whole where
+    replicated, its model block under tensor parallelism, its shard under
+    FSDP), moments, accumulators and EMA."""
+    opt = state.opt_state
+    tensors = [*state.param_targets(), *opt.mu, *opt.nu, *(opt.acc_grads or []),
+               *(state.ema_params or [])]
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def unet_parameters(imagen: Imagen, stages: Optional[Sequence[int]] = None
                     ) -> List[torch.nn.Parameter]:
     """The U-Nets' parameters (of `stages`, default all), stage by stage, in
@@ -288,16 +299,21 @@ def create_train_state(imagen: Imagen, optimizer: ClippedAdam, *, ema: bool = Fa
     """Fresh state over the U-Nets' parameters (of `stages`, default all);
     `ema` also keeps a float32 copy of them for the moving average. On a
     `mesh`, `plan` (``parallel.mesh.zero1_plan`` / ``fsdp_plan``; default
-    every leaf replicated) shards the moments, accumulators and EMA, and
-    under FSDP puts the parameters to rest as their shards; every process
-    first takes process 0's parameters, so that all start from one init
-    however each built its imagen."""
+    ``replicated_plan``: every leaf replicated over ``data``) shards the
+    moments, accumulators and EMA, and under FSDP puts the parameters to
+    rest as their shards; every process first takes process 0's
+    parameters, so that all start from one init however each built its
+    imagen. On a ``model`` axis the plan's wide kernels are then split
+    (``parallel.tensor.place_model``): each process keeps its block, and
+    the moments and EMA of such a leaf live on that block."""
     stages = tuple(range(imagen.num_unets)) if stages is None else tuple(stages)
     params = unet_parameters(imagen, stages)
     names = [(i, name) for i in stages for name, _ in imagen.unets[i].named_parameters()]
     if mesh is not None:
-        plan = plan if plan is not None else pmesh.Plan((None,) * len(params))  # plain DP
+        units = [imagen.unets[i] for i in stages]
+        plan = plan if plan is not None else pmesh.replicated_plan(units, mesh)  # plain DP
         pmesh.broadcast_params(params, mesh)
+        place_model(units, mesh, axes=plan.model_axes)  # a model axis: split the wide kernels
         if plan.shard_params:
             pmesh.shard_parameters(params, plan, mesh)
     state = TrainState(step=0, params=params, opt_state=None, names=names, mesh=mesh,
@@ -410,8 +426,8 @@ def make_train_step(imagen: Imagen, optimizer: ClippedAdam, ema_decay: float = 0
                      else p.grad.float() for p in state.params]
         else:
             if not state.plan.shard_params:
-                grads = pmesh.reduce_gradients([p.grad for p in state.params], state.shapes,
-                                               state.plan, mesh)
+                grads = pmesh.reduce_gradients([p.grad for p in state.params],
+                                               [p.shape for p in state.params], state.plan, mesh)
                 for p in state.params:
                     p.grad = None
             norm_fn = pmesh.global_norm_fn(state.plan, mesh, optimizer.global_norm)
@@ -891,10 +907,12 @@ def MinimagenTrain(timestamp, args, unets, imagen: Imagen, train_dataloader, val
         ``args.ACCUM_ITER`` accumulation.
     :param mesh: a ``parallel.mesh.Mesh``: every process of it runs this
         with the same arguments and loaders (the same global batches, of
-        which each takes its rows). ``args.ZERO1`` picks the sharding where
-        the data axis has more than one process: 'on' (ZeRO-1, the
-        default), 'fsdp' or 'off'. Validation runs on the mesh. Process 0
-        writes the progress log and the U-Net checkpoints, gathered whole;
+        which each takes its rows by data index). ``args.ZERO1`` picks the
+        sharding where the data axis has more than one process: 'on'
+        (ZeRO-1, the default), 'fsdp' or 'off'; on a ``model`` axis the wide
+        kernels are split over it and 'fsdp' takes ZeRO-1, as the JAX
+        package does. Validation runs on the mesh. Process 0 writes the
+        progress log and the U-Net checkpoints, gathered whole;
         the full state goes to ``tmp/train_state_sharded/`` (``parallel.
         checkpoint``: a new dump each time, a file per process and process
         0's manifest, the older dumps removed once it is complete), which a
@@ -914,11 +932,13 @@ def MinimagenTrain(timestamp, args, unets, imagen: Imagen, train_dataloader, val
     plan = None
     shard_mode = getattr(args, "ZERO1", "on")
     if mesh is not None and mesh.size > 1 and shard_mode != "off":
-        make_plan = pmesh.fsdp_plan if shard_mode == "fsdp" else pmesh.zero1_plan
-        plan = make_plan(imagen.unets, mesh)
+        # FSDP on a data-only mesh; with a model axis, tensor parallelism
+        # plus ZeRO-1 (minimagen_tpu/training.py:418-440)
+        fsdp = shard_mode == "fsdp" and mesh.model_size == 1
+        plan = (pmesh.fsdp_plan if fsdp else pmesh.zero1_plan)(imagen.unets, mesh)
     state = create_train_state(imagen, optimizer, ema=ema_decay > 0.0, mesh=mesh, plan=plan)
-    writer = mesh is None or mesh.rank == 0
-    if mesh is not None and mesh.size > 1:
+    writer = mesh is None or mesh.is_leader
+    if mesh is not None and mesh.world.size > 1:
         timeout = None
 
     last_dump: Optional[str] = None  # the full-state dump a torn update goes back to

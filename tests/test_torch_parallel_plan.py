@@ -5,7 +5,7 @@ every parameter's sharded axis under ``parallel.mesh.zero1_plan`` /
 ``fsdp_plan`` is the axis of ``zero1_shardings`` / ``fsdp_shardings`` (on
 the 8 virtual devices' sub-meshes), through the checkpoints' weight-carry
 mapping (HWIO and (in, out) JAX kernels). Also the mesh's rows, the
-refusals (tensor parallelism, uneven training batches, NCCL on a shared
+refusals (a model axis that does not divide the world, FSDP on a model axis, uneven training batches, NCCL on a shared
 card, a process group with no card), ``spawn``'s failure report, the
 multi-host helpers outside a launcher, ``sample``'s `device` argument, a
 one-device dump restored into each process's blocks, and the sharded
@@ -155,8 +155,15 @@ def test_rows_split_a_batch():
 
 
 def test_tensor_parallelism_is_refused():
-    with pytest.raises(NotImplementedError, match="5b"):
-        pmesh.make_mesh(model_parallel=2)
+    """Where the JAX package refuses a model axis: a world that does not
+    divide by it (``mesh.py:46``) and FSDP on it (``mesh.py:223-226``)."""
+    cpu = torch.device("cpu")
+    with pytest.raises(ValueError, match="do not divide by model_parallel=2"):
+        pmesh.make_mesh(Group(None, (0, 1, 2), 0, "gloo", cpu), model_parallel=2)
+    tp = pmesh.Mesh(_mesh(1).group, Group(None, (0, 1), 0, "gloo", cpu),
+                    Group(None, (0, 1), 0, "gloo", cpu))
+    with pytest.raises(ValueError, match="pure data-parallel mesh"):
+        pmesh.fsdp_plan(W.cascade_imagen().unets, tp)
 
 
 def test_cast_params():

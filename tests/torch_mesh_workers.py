@@ -16,13 +16,16 @@ from minimagen_tpu_torch import training as ttrain
 from minimagen_tpu_torch.data.collate import DataLoader, MinimagenCollator
 from minimagen_tpu_torch.data.dataset import SyntheticCaptionedImages
 from minimagen_tpu_torch.models.imagen import Imagen
-from minimagen_tpu_torch.models.unet import BaseTest, SuperTest
-from minimagen_tpu_torch.parallel import cascade, collectives, multihost, pipeline
+from minimagen_tpu_torch.models.unet import BaseTest, SuperTest, UnetConfig
+from minimagen_tpu_torch.parallel import cascade, collectives, multihost, pipeline, tensor
 from minimagen_tpu_torch.parallel import mesh as pmesh
 
 IMAGEN_KW = dict(image_sizes=(8, 16), timesteps=25, cond_drop_prob=0.15,
                  text_encoder_name="t5_small")
 BATCH, L, DIM = 8, 4, 512
+# the test cascade's kernels are at most 64 wide: split every kernel whose
+# output divides by the model size, the stem's included
+TP_MIN = 2
 
 
 def start(jobs):
@@ -99,6 +102,10 @@ def _plan(mode, imagen, mesh):
         return pmesh.zero1_plan(imagen.unets, mesh, min_size=1)
     if mode == "fsdp":
         return pmesh.fsdp_plan(imagen.unets, mesh, min_size=1)
+    if mode == "tp":
+        return pmesh.replicated_plan(imagen.unets, mesh, min_shard_dim=TP_MIN)
+    if mode == "tp_zero1":
+        return pmesh.zero1_plan(imagen.unets, mesh, min_size=1, min_shard_dim=TP_MIN)
     return None
 
 
@@ -228,6 +235,109 @@ def sample_scenarios(group, spec):
     return out
 
 
+def tp_scenarios(group, spec):
+    """Tensor parallelism over a model axis of 2 (world 2: data 1; world 4:
+    data 2): the steps alone and under ZeRO-1 against the one-device step
+    (clip-50 SGD at the JAX step's draws, Adam with accumulation and EMA),
+    per-process bytes against the reckoning, and ``sample(mesh=)`` against
+    ``sample()``: the JAX test's one-stage dim-64 U-Net placed by the
+    default rule, and the test cascade placed at `TP_MIN`."""
+    mesh = pmesh.make_mesh(group, model_parallel=2)
+    out = {"shape": mesh.shape, "coords": (mesh.rank, mesh.model_rank)}
+    sgd = ClippedSGD(1e-2)
+    for mode in ("one", "tp"):
+        run = _run(mode, mesh, sgd, 2, draws=spec["jax_draws"])
+        out[f"sgd_{mode}"] = {k: v for k, v in run.items() if k != "state"}
+    adam = ttrain.make_optimizer(1e-4, accum_iter=2)
+    for mode in ("one", "tp") + (("tp_zero1",) if mesh.size > 1 else ()):
+        run = _run(mode, mesh, adam, 3, ema=0.9)
+        out[f"adam_{mode}"] = {k: v for k, v in run.items() if k != "state"}
+        state = run["state"]
+        if mode != "one":
+            out[f"bytes_{mode}"] = {
+                "measured": ttrain.state_bytes(state),
+                "reckoned": pmesh.reckon_state_bytes(state.shapes, state.plan, mesh,
+                                                     acc_grads=True),
+                "one_device": pmesh.reckon_state_bytes(state.shapes, None, None, acc_grads=True),
+                "split": sum(a is not None for a in state.plan.model_axes),
+                "data_split": sum(a is not None for a in state.plan.axes)}
+
+    # the JAX test's U-Net (test_parallel.py:716-736) placed by sample(mesh=)
+    torch.manual_seed(0)
+    one_stage = Imagen(unets=[UnetConfig(dim=64, dim_mults=(1, 2), num_resnet_blocks=1,
+                                         layer_attns=False, layer_cross_attns=(False, True))],
+                       image_sizes=(8,), timesteps=25, cond_drop_prob=0.1,
+                       text_encoder_name="t5_small", device="cpu")
+    rng = np.random.default_rng(3)
+    embeds = torch.from_numpy(rng.normal(size=(4, 4, 512)).astype(np.float32))
+    masks = torch.ones(4, 4, dtype=torch.bool)
+    kw = dict(cond_scale=2.0, sampler="ddim", sample_steps=4, cache_interval=None)
+    gen = lambda: torch.Generator().manual_seed(13)  # noqa: E731
+    out["jax_unet"] = {"one": one_stage.sample(text_embeds=embeds, text_masks=masks,
+                                               generator=gen(), **kw).numpy(),
+                       "mesh": one_stage.sample(text_embeds=embeds, text_masks=masks,
+                                                generator=gen(), mesh=mesh, **kw).numpy(),
+                       "split": sum(tensor.is_placed(m) for m in one_stage.unets[0].modules()
+                                    if not list(m.children()))}
+    # the cascade, every kernel that divides split (the stems' too)
+    imagen = cascade_imagen()
+    b = batch(seed=40)
+    embeds, masks = torch.from_numpy(b["encoding"]), torch.from_numpy(b["mask"])
+    kw = dict(cond_scale=3.0, sampler="ddim", sample_steps=3, cache_interval=None)
+    one = imagen.sample(text_embeds=embeds, text_masks=masks, generator=gen(), **kw).numpy()
+    placed = tensor.place_model(imagen.unets, mesh, min_shard_dim=TP_MIN)
+    out["cascade"] = {"one": one, "placed": placed,
+                      "stems": [type(u.init_conv).__name__ for u in imagen.unets],
+                      "mesh": imagen.sample(text_embeds=embeds, text_masks=masks,
+                                            generator=gen(), mesh=mesh, **kw).numpy()}
+    return out
+
+
+def tp_stage_scenarios(group, spec):
+    """World 4 as two stage groups of {data 1, model 2}
+    (``make_stage_meshes(2, model_parallel=2)``): the pipelined server and
+    the cascade trainer, each stage's kernels split at `TP_MIN`, against
+    their one-device counterparts."""
+    meshes = cascade.make_stage_meshes(2, model_parallel=2)
+    stage = next(s for s, m in enumerate(meshes) if m.rank >= 0)
+    out = {"stage": stage, "shape": meshes[stage].shape,
+           "groups": [list(m.world.ranks) for m in meshes]}
+    imagen = cascade_imagen()
+    placed = tensor.place_model([imagen.unets[stage]], meshes[stage], min_shard_dim=TP_MIN)
+    reqs = [{"text_embeds": batch(4, seed=s)["encoding"], "text_masks": batch(4, seed=s)["mask"],
+             "seed": s} for s in (1, 2)]
+    kw = dict(cond_scale=3.0, sampler="ddim", sample_steps=3)
+    server = pipeline.CascadePipelineServer(imagen, meshes, cache_interval=None, depth=2, **kw)
+    got = list(server.serve(reqs))
+    out["placed"] = placed
+    if stage == 1:
+        ref = cascade_imagen()
+        out["served"] = [g.numpy() for g in got]
+        out["reference"] = [ref.sample(text_embeds=r["text_embeds"], text_masks=r["text_masks"],
+                                       generator=torch.Generator().manual_seed(r["seed"]),
+                                       cache_interval=None, **kw).numpy() for r in reqs]
+    sgd = ClippedSGD(1e-2)
+    imagen = cascade_imagen()
+    tensor.place_model([imagen.unets[stage]], meshes[stage], min_shard_dim=TP_MIN)
+    trainer = cascade.CascadeParallelTrainer(imagen, sgd, meshes)
+    ref_imagen = cascade_imagen()
+    ref_state = ttrain.create_train_state(ref_imagen, sgd, stages=(stage,))
+    ref_step = cascade.make_stage_train_step(ref_imagen, stage, sgd)
+    losses, ref_losses = [], []
+    for i in range(2):
+        b = batch(seed=50 + i)
+        losses.append(trainer.step(b, seed=6))
+        ref_state, l_ = ref_step(ref_state, torch_batch(b), 6)
+        ref_losses.append(float(l_))
+    whole = pmesh.full_tensors(trainer.state.local_params(), trainer.state.plan,
+                               trainer.state.mesh, trainer.state.shapes)
+    out["trainer"] = {"losses": np.stack(losses), "ref_losses": np.array(ref_losses),
+                      "params": np.concatenate([t.detach().numpy().ravel() for t in whole]),
+                      "ref_params": np.concatenate([p.detach().numpy().ravel() for p in
+                                                    ref_imagen.unets[stage].parameters()])}
+    return out
+
+
 def init_scenarios(group, spec):
     """Each process builds its cascade from its own seed (its rank); a train
     state made on the mesh, plain DP and FSDP, starts from process 0's."""
@@ -308,11 +418,12 @@ def harness_run(group, spec):
     """A ``MinimagenTrain`` run on the mesh: 8 synthetic items, global batch
     2, checkpoints and validation every 2 batches, EMA, ZeRO-1 (or as
     `spec` says)."""
-    mesh = pmesh.make_mesh(group)
+    mesh = pmesh.make_mesh(group, model_parallel=spec.get("model_parallel", 1))
     args = ttrain.load_testing_parameters(ttrain.get_minimagen_parser().parse_args([]))
     args.IMG_SIDE_LEN, args.EPOCHS, args.CHCKPT_NUM, args.MAX_NUM_WORDS = 16, 1, 2, 8
     args.EMA, args.ZERO1 = 0.9, spec.get("zero1", "on")
     imagen = cascade_imagen()
+    tensor.place_model(imagen.unets, mesh, min_shard_dim=TP_MIN)  # a model axis: split
     ds = SyntheticCaptionedImages(num_items=8, side_length=16, encoder_name="t5_small",
                                   max_length=8, device="cpu")
     loader = lambda **kw: DataLoader(ds, batch_size=2, collate_fn=MinimagenCollator(max_length=8),  # noqa: E731
@@ -325,9 +436,15 @@ def harness_run(group, spec):
     summary = ttrain.MinimagenTrain("run", args, imagen.unet_configs, imagen, loader(),
                                     loader(shuffle=False), training_dir, mesh=mesh)
     with pmesh.gathered(imagen.unets.parameters()):  # FSDP weights rest as shards
-        weights = {f"unet_{i}": {n: t.detach().numpy().copy() for n, t in u.state_dict().items()}
-                   for i, u in enumerate(imagen.unets)}
-    return {"summary": summary, "weights": weights, "rank": mesh.rank}
+        whole = pmesh.full_tensors(  # tensor-parallel blocks gathered whole
+            [p.detach() for p in imagen.unets.parameters()],
+            pmesh.replicated_plan(imagen.unets, mesh), mesh,
+            [pmesh.full_shape(p) for p in imagen.unets.parameters()])
+    whole = iter(whole)
+    weights = {f"unet_{i}": {n: next(whole).numpy().copy() for n, _ in u.named_parameters()}
+               for i, u in enumerate(imagen.unets)}
+    return {"summary": summary, "weights": weights, "rank": mesh.rank,
+            "model_rank": mesh.model_rank, "shape": mesh.shape}
 
 
 def fail_on_rank_1(group, spec=None):
