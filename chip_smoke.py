@@ -85,8 +85,12 @@ Phases, one line each with elapsed seconds; any failure exits non-zero:
    synthetic items, checkpoints and validation every 10 batches, bf16
    compute, EMA 0.9995, a bf16 Adam first moment), a ``-rd`` restart for one
    more epoch, then ``python -m minimagen_tpu_torch.inference`` (DDIM-50,
-   seed 0) on the 8 eval captions, as subprocesses, each counting its own
-   launches: losses finite, the progress log's checkpoint and validation
+   seed 0) on the 8 eval captions, then the train CLI in float32 (no
+   ``--BF16``, the reference's default: 64 synthetic items, batch 16, 4
+   steps), as subprocesses, each counting its own launches by type: the
+   inference CLI's float32 attention forwards and the float32 run's every
+   float32 attention forward and backward launched; losses finite, the
+   progress log's checkpoint and validation
    lines, the restart resuming at the dumped step with Adam's count equal
    to it, 8 PNGs of 256x256x3 whose pixels equal ``Imagen.sample``'s from
    the same weights, seed and arguments; MinimagenTrain's steps/sec beside
@@ -176,7 +180,10 @@ record_function range around it, and a trace of the SR stem by itself).
 
 Then it prints the kernels' JSON line (attention and GroupNorm entries also
 carry ``device_ms``, attention ``library_device_ms``, GroupNorm the
-``form``), the card's name and power limit, and
+``form``; each entry's "float32" holds its numbers at the heaviest float32
+shape and its float32 launches from the inference CLI and the float32
+train CLI run; float32 attention's bound counts three TF32 products per
+float32 product at the TF32 tensor rate), the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. It exits non-zero without a result when no CUDA card is present or the
 package is missing.
 """
@@ -254,6 +261,12 @@ HARNESS_SIDE = 256
 HARNESS_STEPS = 32
 HARNESS_FAULTS = ("ABORTED", "SKIPPED", "FAILED", "RESTORED")
 HARNESS_TIMEOUT_S = 600
+# the float32 run of the train CLI (no --BF16, the reference's default): 64
+# synthetic items at batch 16, 4 steps, one checkpoint and validation
+HARNESS_F32_ARGS = ["-b", "16", "-e", "1", "-f", str(64 / 2048), "-vn", "16", "-cn", "10",
+                    "--EMA", "0.9995"]
+HARNESS_F32_STEPS = 4
+ATTENTION_KERNELS = ("mqa_forward", "mha_forward", "mqa_backward", "mha_backward")
 MESH_BATCH = 16  # the lite training batch (train_lite), split over the mesh
 MESH_STEPS, MESH_TIMED_STEPS = 5, 4  # world 1: the last 4 steps timed
 MESH_TIMING_ORDER = ("one", "off", "on", "fsdp", "fsdp", "on", "off", "one")  # in turns
@@ -265,9 +278,11 @@ MESH_TIMEOUT_S = 600
 SEED = 0
 DEVICE = "cuda"
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
+# H100 SXM peaks (NVIDIA data sheet, dense, at 700 W); float32 attention
+# runs on the tensor cores as three TF32 products per float32 product
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
+TF32_PASSES = 3
 # exponentials: 16 per SM per clock (the special-function units), at the SM
 # clock nvidia-smi reports as clocks.max.sm (read in main)
 EXP_PER_SM_CLOCK = 16
@@ -592,9 +607,22 @@ def check_attention(kind, shape, dtype, gen):
     row.update(_library(forms))
     itemsize = q.element_size()
     nbytes = (q.numel() * 2 + k.numel() + v.numel()) * itemsize
-    ops = 4 * b * h * n * j * d
-    row.update(_bound(nbytes, ops, row["dtype"], exps=b * h * n * j))
+    row.update(_attention_bound(nbytes, 4 * b * h * n * j * d, row["dtype"], b * h * n * j))
     return row
+
+
+def _attention_bound(nbytes, ops, dtype_name, exps):
+    """_bound of an attention kernel: bf16 products at the bf16 tensor
+    rate; float32 ones as the kernels take them, three TF32 products each at
+    the TF32 tensor rate (``cuda_core_bound_ms``: the float32 products on
+    the CUDA cores instead, for reference)."""
+    if dtype_name == "bfloat16":
+        return _bound(nbytes, ops, dtype_name, exps=exps)
+    out = _bound(nbytes, TF32_PASSES * ops, "tf32", exps=exps)
+    out["cuda_core_bound_ms"] = _bound(nbytes, ops, "float32", exps=exps)["bound_ms"]
+    if out["bound_detail"] == "operations":
+        out["bound_detail"] = "3xTF32 operations"
+    return out
 
 
 def _library(forms):
@@ -1214,14 +1242,14 @@ def check_attention_backward(kind, shape, dtype, gen):
         row["fwd_library_ms"], row["fwd_library_device_ms"] = median_ms(lib), device_ms(lib)
         fwd_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() \
             + 4 * (b * h * n + b * j)
-        row["fwd_bound_ms"] = _bound(fwd_bytes, 4 * b * h * n * j * d, name,
-                                     exps=b * h * n * j)["bound_ms"]
+        row["fwd_bound_ms"] = _attention_bound(fwd_bytes, 4 * b * h * n * j * d, name,
+                                               b * h * n * j)["bound_ms"]
     itemsize = q.element_size()
     # read q, k, v, o, do (and lse, bias); write dq, dk, dv; P rebuilt in
     # both passes: 2 b h n j exponentials
     nbytes = (4 * q.numel() + 2 * (k.numel() + v.numel())) * itemsize + 4 * b * h * n \
         + (0 if bias is None else 4 * b * j)
-    row.update(_bound(nbytes, 10 * b * h * n * j * d, name, exps=2 * b * h * n * j))
+    row.update(_attention_bound(nbytes, 10 * b * h * n * j * d, name, 2 * b * h * n * j))
     return row
 
 
@@ -1283,6 +1311,7 @@ def _report(rows):
             f"library {lib if lib is None else round(lib, 4)}{lib_dev} ms "
             f"bound {r['bound_ms']:.4f} ms ({r.get('bound_detail', r['bound_by'])}"
             + (f"; exponentials {r['exp_bound_ms']:.4f}" if r.get("exp_bound_ms") else "")
+            + (f"; CUDA cores {r['cuda_core_bound_ms']:.4f}" if "cuda_core_bound_ms" in r else "")
             + f") {'ok' if ok else 'FAIL'}"
             + (f"; biased forward {r['fwd_ms']:.4f} (device {r['fwd_device_ms']:.4f}) ms plain "
                f"{r['fwd_plain_ms']:.4f} ms library {r['fwd_library_ms']:.4f} (device "
@@ -1785,12 +1814,16 @@ def train_default(imagen, batch, train_shapes):
     return launches, dict(losses=[l.tolist() for l in losses], ms=ms, peak_gib=peak, ulps=ulps)
 
 
-def kernel_entries(rows, launches):
+def kernel_entries(rows, launches, f32_launches):
     """One entry per kernel for the JSON line, at the heaviest bf16 shape
     checked (largest bound), with its launches summed over the runs of the
     paths (lite sampling and learning, default serving and training), each
-    counted from 0."""
+    counted from 0; and under "float32" the same numbers at the heaviest
+    float32 shape, with the kernel's float32 launches from the float32 entry
+    points (`f32_launches`: the inference CLI and the train CLI without
+    --BF16)."""
     entries = []
+    keys = ("device_ms", "library_device_ms", "form")  # device: 20 launches back to back
     for name, (source, replaces, design) in {**KERNEL_INFO, **BACKWARD_INFO}.items():
         bf16 = [r for r in rows if r["kernel"] == name and r["dtype"] == "bfloat16"]
         top = max(bf16, key=lambda r: r["bound_ms"])
@@ -1799,11 +1832,19 @@ def kernel_entries(rows, launches):
                      max_abs_err=top["max_abs_err"], ms=top["ms"],
                      plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
                      bound_by=top["bound_by"], library_ms=top["library_ms"])
-        for key in ("device_ms", "library_device_ms", "form"):  # device: 20 launches back to back
-            if key in top:
-                entry[key] = top[key]
+        entry.update({key: top[key] for key in keys if key in top})
+        f32 = [r for r in rows if r["kernel"] == name and r["dtype"] == "float32"]
+        if f32:
+            t32 = max(f32, key=lambda r: r["bound_ms"])
+            entry["float32"] = dict(
+                shape=t32["shape"], max_abs_err=t32["max_abs_err"], ms=t32["ms"],
+                plain_ms=t32["plain_ms"], bound_ms=t32["bound_ms"], bound_by=t32["bound_by"],
+                library_ms=t32["library_ms"],
+                launches={cli: counts[name] for cli, counts in f32_launches.items()},
+                **{key: t32[key] for key in keys + ("cuda_core_bound_ms",) if key in t32})
         entries.append(entry)
-        log(f"  {name}: numbers at {tuple(top['shape'])} bfloat16")
+        log(f"  {name}: numbers at {tuple(top['shape'])} bfloat16"
+            + (f", float32 at {tuple(entry['float32']['shape'])}" if f32 else ""))
     return entries
 
 
@@ -2058,7 +2099,25 @@ def harness_phase(captions):
             f.writelines(f"{c}\n" for c in captions)
         infer, t_infer = run_cli("inference", ["-d", "training_lite_b", "-c", cap_file,
                                                *HARNESS_INFER_ARGS, "--DEVICE", DEVICE], work)
+        f32, t_f32 = run_cli("train", ["-p", params, *HARNESS_F32_ARGS, "-ts", "lite_f32",
+                                       "--DEVICE", DEVICE], work)
         failures = []
+        f32_summary = f32["summary"]
+        log(f"  float32 train CLI (no --BF16): {t_f32:.1f} s, steps {f32_summary['start_step']} "
+            f"-> {f32_summary['final_step']}, train step {1e3 * f32_summary['perf']['mean_s']:.1f} "
+            f"ms; float32 launches {f32['launches_by_dtype']['float32']}")
+        if not _finite_losses(f32_summary):
+            failures.append("float32 train: a loss is not finite")
+        if f32_summary["final_step"] != HARNESS_F32_STEPS:
+            failures.append(f"float32 train: ended at step {f32_summary['final_step']}")
+        unlaunched = [k for k in ATTENTION_KERNELS if not f32["launches_by_dtype"]["float32"][k]]
+        if unlaunched:
+            failures.append(f"float32 train: float32 attention never launched: {unlaunched}")
+        infer_f32 = infer["launches_by_dtype"]["float32"]
+        log(f"  inference CLI float32 launches {infer_f32}")
+        unlaunched = [k for k in ("mqa_forward", "mha_forward") if not infer_f32[k]]
+        if unlaunched:
+            failures.append(f"inference: float32 attention never launched: {unlaunched}")
         for name, summary, seconds in (("train", first, t_first), ("restart", second, t_second)):
             s = summary["summary"]
             perf = s["perf"]
@@ -2125,7 +2184,8 @@ def harness_phase(captions):
         if failures:
             raise PhaseError("; ".join(failures))
         return {"harness train": first["launches"], "harness restart": second["launches"],
-                "harness inference": infer["launches"]}
+                "harness inference": infer["launches"], "harness float32 train": f32["launches"]}, \
+            {"inference CLI": infer_f32, "train CLI": f32["launches_by_dtype"]["float32"]}
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2857,7 +2917,7 @@ def main():
         profile_train(run)
     del run
     with phase("harness: train CLI on the lite cascade, restart, inference CLI"):
-        harness_launches = harness_phase(captions)
+        harness_launches, f32_launches = harness_phase(captions)
         for name, counts in harness_launches.items():
             require_launched(counts, name, names=tuple(KERNEL_INFO) + (
                 tuple(BACKWARD_INFO) if "inference" not in name else ()))
@@ -2944,7 +3004,7 @@ def main():
         log(f"launches, {name}: {counts}")
     totals = {k: sum(counts[k] for counts in runs.values()) for k in launches}
     # the 65544-pair attention check is not a path shape: logged above, not in the line
-    entries = kernel_entries(rows + bwd_rows + big_rows + big_bwd_rows, totals)
+    entries = kernel_entries(rows + bwd_rows + big_rows + big_bwd_rows, totals, f32_launches)
     log(f"launches per base run {snapshots['base']}; elapsed {time.time() - t_start:.1f} s")
     log(json.dumps({"kernels": entries}))
     log(card)

@@ -17,7 +17,12 @@ and text encodings: the time does not depend on their values), the median
 of `reps` // 10 runs of 5 steps, each ending in a synchronize; and the
 device ms per step of each kernel family (attention by kind, and
 GroupNorm; by kernel name) in those steps and in a lite train step (batch
-16), from a torch.profiler trace. ``--kernels`` times only the named kernels (e.g. mha_forward,
+16), from a torch.profiler trace. The float32 attention kernels are timed
+too (``F32_SHAPES``, keys ending in "float32", with each launched kernel's
+device ms per call by name from a trace), and the float32 lite
+cascade's guided step per stage and train step (batch 16; float32 compute,
+as the train CLI without --BF16 and the inference CLI run), host ms and
+kernel families alike. ``--kernels`` times only the named kernels (e.g. mha_forward,
 mha_backward) and no steps: the card then runs nothing else between their
 launches. ``--forms`` times only GroupNorm's cluster and streaming forms at
 FORM_SHAPES (the measurements behind the form rule). ``--train-default``
@@ -55,6 +60,13 @@ SHAPES = [("mqa_forward", (16, 8, 1024, 1025)), ("mha_forward", (16, 8, 1024, 25
           ("depth_to_space_bias", (16, 64, 64, 512, 4))]
 
 
+# float32 attention at the path's heaviest shapes, the multi-head pair with
+# a mask bias dropping about a quarter of the keys (the train step's
+# cross-attention)
+F32_SHAPES = [("mqa_forward", (16, 8, 1024, 1025)), ("mqa_backward", (16, 8, 1024, 1025)),
+              ("mha_forward", (16, 8, 1024, 259)), ("mha_backward", (16, 8, 1024, 259))]
+
+
 def median_ms(fn, reps):
     import torch
 
@@ -89,8 +101,10 @@ def device_ms(fn, reps, inner=20):
 
 
 # attention kernel families by name tag: the Hopper multi-query and
-# multi-head kernels, the attention_ kernels (the float32 ones; in older
-# trees the bf16 mma.sync kernels) and the dk/dv slice sum
+# multi-head kernels, the attention_ kernels (the float32 ones: the 3xTF32
+# attention_tf32_* kernels and their split pre-passes; in older trees the
+# CUDA-core float32 kernels and the bf16 mma.sync ones) and the dk/dv slice
+# sum
 ATTENTION_FAMILIES = {"mqa (wgmma)": "mqa_", "mha (wgmma)": "mha_",
                       "attention_ (float32; older trees' mma.sync)": "attention_",
                       "kv_reduce": "kv_reduce"}
@@ -107,6 +121,20 @@ def family_ms(items, calls):
     device us) trace items of `calls` calls."""
     return {family: sum(us for name, us in items if any(t in name for t in tags)) / 1e3 / calls
             for family, tags in FAMILIES.items()}
+
+
+def traced_kernel_ms(fn, calls):
+    """Device ms per call of `fn` of each kernel it launches, by name, from
+    a torch.profiler trace of `calls` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / 1e3 / calls for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and e.self_device_time_total > 0}
 
 
 def traced_family_ms(fn, calls):
@@ -166,13 +194,15 @@ def form_times(gen, calls=20):
     return out
 
 
-def launcher(kernel, shape, gen):
-    """A no-argument call of `kernel` on seeded bf16 inputs of `shape`."""
+def launcher(kernel, shape, gen, dtype=None):
+    """A no-argument call of `kernel` on seeded inputs of `shape` in `dtype`
+    (default bf16); float32 multi-head attention with a mask bias."""
     import torch
     from minimagen_tpu_torch.ops import flash_attention as fa
     from minimagen_tpu_torch.ops import group_norm as gn
 
-    rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(torch.bfloat16)  # noqa: E731
+    dtype = dtype or torch.bfloat16
+    rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(dtype)  # noqa: E731
     if kernel == "depth_to_space_bias":
         from minimagen_tpu_torch.ops import stem_conv as sc
 
@@ -185,10 +215,15 @@ def launcher(kernel, shape, gen):
         q = rnd(b, h, n, 64) * 0.125
         kv = (b, j, 64) if kind == "mqa" else (b, h, j, 64)
         k, v, g = rnd(*kv), rnd(*kv), rnd(b, h, n, 64)
+        bias = None
+        if kind == "mha" and dtype == torch.float32:
+            keep = torch.rand(b, j, generator=gen, device="cuda") >= 0.25
+            keep[:, 0] = True
+            bias = torch.where(keep, 0.0, fa.NEG_INF).float()[:, None, None, :].contiguous()
         if kernel.endswith("forward"):
-            return lambda: fa.attention_forward_kernel(kind, q, k, v)
-        out, lse = fa.attention_forward_kernel(kind, q, k, v, with_lse=True)
-        return lambda: fa.attention_backward_kernel(kind, q, k, v, None, out, g, lse)
+            return lambda: fa.attention_forward_kernel(kind, q, k, v, bias)
+        out, lse = fa.attention_forward_kernel(kind, q, k, v, bias, with_lse=True)
+        return lambda: fa.attention_backward_kernel(kind, q, k, v, bias, out, g, lse)
     b, h, w, c, with_ss = shape
     x, gamma, beta = rnd(b, h, w, c), rnd(c) * 0.2 + 1.0, rnd(c) * 0.1
     if kernel == "torch_group_norm":
@@ -205,14 +240,15 @@ def launcher(kernel, shape, gen):
     return lambda: gn.group_norm_backward_kernel(x, gamma, beta, scale, shift, mean, rstd, g, **kw)
 
 
-def step_ms(stage, runs, steps=5):
-    """Host ms per guided DDIM step of lite stage `stage` at 8 captions, and
-    the kernel families' device ms per step."""
+def step_ms(stage, runs, steps=5, dtype=None):
+    """Host ms per guided DDIM step of lite stage `stage` at 8 captions in
+    `dtype` (default the lite cascade's bf16), and the kernel families'
+    device ms per step."""
     import torch
     from minimagen_tpu_torch.generate import lite_imagen
 
     torch.manual_seed(0)
-    imagen = lite_imagen(device="cuda")
+    imagen = lite_imagen(device="cuda", dtype=dtype or torch.bfloat16)
     gen = torch.Generator(device="cuda").manual_seed(0)
     size = imagen.image_sizes[stage]
     embeds = torch.randn(8, 16, imagen.text_embed_dim, generator=gen, device="cuda")
@@ -249,6 +285,40 @@ def train_family_ms(steps=3):
         run.step_fn(run.state, {name: v[k] for name, v in run.batches.items()}, seed=0)
 
     return traced_family_ms(go, steps)
+
+
+def train_f32_ms(runs, steps=3):
+    """Host ms per synchronized lite train step in float32 compute (batch
+    16, float32 parameters, clip-50 Adam and the EMA at the lite recipe's
+    settings: the train CLI without --BF16), the median of `runs` runs of
+    `steps` steps after a warm-up, and the kernel families' device ms per
+    step."""
+    import torch
+    from minimagen_tpu_torch.generate import lite_imagen
+    from minimagen_tpu_torch.training import (create_train_state, make_optimizer,
+                                              make_train_step, stage_batches)
+
+    torch.manual_seed(0)
+    imagen = lite_imagen(dtype=torch.float32, param_dtype=torch.float32, device="cuda")
+    batch = {k: v[0] for k, v in stage_batches(16, 16, imagen.image_sizes[-1], 16, "t5_tiny",
+                                               device="cuda").items()}
+    opt = make_optimizer(1e-4)
+    state = [create_train_state(imagen, opt, ema=True)]
+    step = make_train_step(imagen, opt, ema_decay=0.9995)
+
+    def go():
+        state[0], _ = step(state[0], batch, seed=0)
+
+    go()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            go()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / steps)
+    return statistics.median(times), traced_family_ms(go, steps)
 
 
 def train_default(steps):
@@ -305,22 +375,31 @@ def main(argv=None):
                           "default_train": train_default(args.train_default)}), flush=True)
         return 0
     only = set(args.kernels.split(",")) if args.kernels else None
-    times, device = {}, {}
-    for k, s in SHAPES:
+    times, device, by_kernel = {}, {}, {}
+    rows = [(k, s, None, f"{k} {s}") for k, s in SHAPES] \
+        + [(k, s, torch.float32, f"{k} {s} float32") for k, s in F32_SHAPES]
+    for k, s, dtype, key in rows:
         if only is not None and k not in only:
             continue
-        fn = launcher(k, s, gen)
-        times[f"{k} {s}"] = median_ms(fn, args.reps)
-        device[f"{k} {s}"] = device_ms(fn, max(1, args.reps // 5))
+        fn = launcher(k, s, gen, dtype)
+        times[key] = median_ms(fn, args.reps)
+        device[key] = device_ms(fn, max(1, args.reps // 5))
+        if dtype is not None:
+            by_kernel[key] = traced_kernel_ms(fn, 5)
     steps, families = {}, {}
     if only is None:
         for i in (0, 1):
             steps[f"lite stage {i} host ms/step"], families[f"lite stage {i}"] = \
                 step_ms(i, max(1, args.reps // 10))
         families["lite train step"] = train_family_ms()
+        for i in (0, 1):
+            steps[f"lite stage {i} float32 host ms/step"], families[f"lite stage {i} float32"] = \
+                step_ms(i, max(1, args.reps // 10), dtype=torch.float32)
+        steps["lite train step float32 host ms/step"], families["lite train step float32"] = \
+            train_f32_ms(max(1, args.reps // 10))
     print(json.dumps({"card": torch.cuda.get_device_name(0), "root": args.root,
                       "package": os.path.dirname(kernels.__file__), "median_ms": times,
-                      "device_ms": device, "steps": steps,
+                      "device_ms": device, "device_ms_by_kernel": by_kernel, "steps": steps,
                       "family_device_ms_per_step": families}), flush=True)
     return 0
 

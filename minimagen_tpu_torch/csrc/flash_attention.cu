@@ -111,8 +111,49 @@
 //     once and mask nothing (ds_tile_biased): the masked per-element loads
 //     of the edge instance made the biased backward 1.5x the unbiased one.
 //
-// float32 (tests and the float32 reference run): the same passes on the
-// CUDA cores, one thread per query row (forward, dq) or per key (dk/dv).
+// float32 (the train CLI without --BF16, the inference CLI, the float32
+// references), attention_tf32_*_kernel: the same passes on the tensor cores
+// in 3xTF32. A one-pass TF32 product keeps ~11 bits of each operand, ~1e-3
+// relative, where the float32 kernels are held to 2e-5; so each operand x is
+// split into big = tf32(x) (cvt.rna) and small = tf32(x - big), and a
+// product is A_small B_big + A_big B_small + A_big B_big in float32
+// accumulators (~22 bits; small x small is dropped). What bounds them is the
+// tensor work: at (16, 8, 1024, 1025) the forward's 3 x 34.4 GFLOP take
+// 0.208 ms at 495 TFLOP/s (TF32 dense), the backward's five products 0.52
+// ms, against 0.51 and 1.28 ms of float32 products on the CUDA cores; the
+// bytes (float32: 75.5 MB forward) take 0.023 ms. What the design does:
+//   - wgmma takes tf32 from shared memory K-major only (no transposed
+//     descriptor as for bf16), so the B operands of O += P V, dq += dS K,
+//     dv += P^T dO and dk += dS^T Q are written transposed and split by a
+//     pre-pass (attention_tf32_split_t_kernel, which also writes the
+//     untransposed parts; attention_tf32_split_kernel), and TMA loads every
+//     operand as (rows, 32-float) boxes with 128-byte swizzle: a 64-wide
+//     row is two swizzle atoms. The forward's Q is split in shared memory
+//     by its warpgroup, once per block. The pre-pass moves ~5x the inputs'
+//     bytes: ~6% of the multi-query backward at (16, 8, 1024, 1025).
+//   - The tensor cores' float32 sums truncate at each step: over the 8192
+//     rows of a multi-query dk/dv that left ~1e-4 relative. A tile's
+//     products go to a fresh accumulator, added on the CUDA cores (pass 2:
+//     every kF32Window tiles, into float32 totals in shared memory).
+//   - P and dS enter as register A fragments, split in registers; the
+//     accumulator holds columns 2t, 2t + 1 of each 8 where the tf32 A layout
+//     reads t, t + 4, so the transposed operands order each 8 keys (rows)
+//     that way (split_a) and no shuffle is needed.
+//   - Shared memory: a float32 tile is twice a bf16 one and the split doubles
+//     it again, so the rings are 2 stages deep: the forward 64 keys a stage
+//     (K and V^T, big and small: 64 KB) beside Q (32 KB a warpgroup), two
+//     warpgroups where that fills the card (193 KB); pass 1 32 keys a stage
+//     (K, V, K^T: 48 KB) beside Q and dO (64 KB a warpgroup; 225 KB for two);
+//     pass 2 one warpgroup of 64 keys (K and V, 64 KB), 32 query rows a
+//     stage (Q, dO, Q^T, dO^T: 64 KB) and the dk/dv totals (32 KB; 225 KB).
+//     Pass 2 is the slowest part: with one consumer warpgroup an SM and
+//     m64n32 products whose operands both come from shared memory, it
+//     reaches ~30% of its bound (1.4 of 2.4 ms at the multi-query shape).
+//   - As the bf16 kernels: warp-specialised blocks with one TMA producer
+//     thread; one tile behind on the tensor cores; the last tile peeled off;
+//     multi-query rows across heads and dk/dv summed over the heads in
+//     registers (at most 4 row-split float32 slices, summed in fixed order);
+//     dropped rows as dropped_row; no atomics.
 
 #include <cuda.h>  // CUtensorMap and its enums; the CUDA driver call comes through the runtime
 
@@ -123,8 +164,6 @@
 namespace {
 
 constexpr int kHeadDim = 64;  // ATTN_DIM_HEAD of the U-Net
-constexpr int kBlockQ = 64;   // float32 forward: query rows (= threads) per block
-constexpr int kBlockK = 32;   // float32 forward: keys per shared-memory tile
 constexpr int kMaxGridYZ = 65535;  // the most blocks along grid y or z
 
 // Every launch's grid is (tiles, heads, batch): x walks the query rows or
@@ -133,13 +172,6 @@ constexpr int kMaxGridYZ = 65535;  // the most blocks along grid y or z
 // blocks of one (sample, head) still run next to each other.
 __device__ __forceinline__ int sample_head() {
   return static_cast<int>(blockIdx.z * gridDim.y + blockIdx.y);
-}
-
-// K/V of (batch * heads + head) bh sit at index bh / kv_group: kv_group is
-// the head count for multi-query (one K/V per sample), 1 for multi-head.
-// The bias row of bh is row bh / heads.
-__device__ __forceinline__ const float* bias_row(const float* bias, int bh, int heads, int j) {
-  return bias == nullptr ? nullptr : bias + static_cast<size_t>(bh / heads) * j;
 }
 
 // A row whose every key the bias drops: all its logits sit at the mask floor
@@ -151,243 +183,6 @@ __device__ __forceinline__ const float* bias_row(const float* bias, int bh, int 
 constexpr float kDroppedRowLse = -1e29f;  // a tenth of the mask floor
 
 __device__ __forceinline__ bool dropped_row(float lse) { return lse < kDroppedRowLse; }
-
-// ---- float32 on the CUDA cores ---------------------------------------------
-__global__ void __launch_bounds__(kBlockQ)
-    attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, const float* __restrict__ bias,
-                         float* __restrict__ o, float* __restrict__ lse, int kv_group, int heads,
-                         int n, int j) {
-  __shared__ float ks[kBlockK][kHeadDim];
-  __shared__ float vs[kBlockK][kHeadDim];
-  __shared__ float bs[kBlockK];
-
-  const int bh = sample_head();
-  const int row = blockIdx.x * kBlockQ + threadIdx.x;
-  const bool active = row < n;
-  const size_t kv_base = static_cast<size_t>(bh / kv_group) * j * kHeadDim;
-  const float* kp = k + kv_base;
-  const float* vp = v + kv_base;
-  const float* brow = bias_row(bias, bh, heads, j);
-
-  float qr[kHeadDim];
-  float acc[kHeadDim];
-  const float* qp = q + (static_cast<size_t>(bh) * n + (active ? row : 0)) * kHeadDim;
-#pragma unroll
-  for (int c = 0; c < kHeadDim; ++c) {
-    qr[c] = active ? qp[c] : 0.f;
-    acc[c] = 0.f;
-  }
-  float row_max = -INFINITY;
-  float row_sum = 0.f;
-
-  for (int k0 = 0; k0 < j; k0 += kBlockK) {
-    const int kt = min(kBlockK, j - k0);  // >= 1
-    __syncthreads();  // the previous tile is consumed
-    for (int e = threadIdx.x; e < kBlockK * kHeadDim; e += kBlockQ) {
-      const int r = e / kHeadDim, c = e % kHeadDim;
-      float kv = 0.f, vv = 0.f;
-      if (r < kt) {
-        const size_t idx = static_cast<size_t>(k0 + r) * kHeadDim + c;
-        kv = kp[idx];
-        vv = vp[idx];
-      }
-      ks[r][c] = kv;
-      vs[r][c] = vv;
-    }
-    if (threadIdx.x < kBlockK)
-      bs[threadIdx.x] = (brow != nullptr && threadIdx.x < kt) ? brow[k0 + threadIdx.x] : 0.f;
-    __syncthreads();
-
-    float s[kBlockK];
-    float tile_max = -INFINITY;
-#pragma unroll
-    for (int r = 0; r < kBlockK; ++r) {
-      float dot = 0.f;
-#pragma unroll
-      for (int c = 0; c < kHeadDim; ++c) dot = fmaf(qr[c], ks[r][c], dot);
-      s[r] = r < kt ? dot + bs[r] : -INFINITY;  // ragged tail of the last tile
-      tile_max = fmaxf(tile_max, s[r]);
-    }
-    const float new_max = fmaxf(row_max, tile_max);  // finite: kt >= 1
-    const float correction = expf(row_max - new_max);  // 0 on the first tile
-    row_sum *= correction;
-#pragma unroll
-    for (int c = 0; c < kHeadDim; ++c) acc[c] *= correction;
-#pragma unroll
-    for (int r = 0; r < kBlockK; ++r) {
-      const float p = expf(s[r] - new_max);  // 0 for masked keys
-      row_sum += p;
-#pragma unroll
-      for (int c = 0; c < kHeadDim; ++c) acc[c] = fmaf(p, vs[r][c], acc[c]);
-    }
-    row_max = new_max;
-  }
-
-  if (active) {
-    float* op = o + (static_cast<size_t>(bh) * n + row) * kHeadDim;
-#pragma unroll
-    for (int c = 0; c < kHeadDim; ++c) op[c] = acc[c] / row_sum;
-    if (lse != nullptr) lse[static_cast<size_t>(bh) * n + row] = row_max + logf(row_sum);
-  }
-}
-
-constexpr int kF32Pad = kHeadDim + 1;  // per-thread rows in shared memory: conflict-free
-constexpr int kDqRows = 64;            // float32 dq pass: query rows (= threads) per block
-constexpr int kDqKeys = 16;            // float32 dq pass: keys per tile
-constexpr int kKvKeys = 64;            // float32 dk/dv pass: keys (= threads) per block
-constexpr int kKvRows = 16;            // float32 dk/dv pass: query rows per tile
-
-// Pass 1 in float32: D, then dq = sum over keys of dS K.
-__global__ void __launch_bounds__(kDqRows)
-    attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                            const float* __restrict__ v, const float* __restrict__ bias,
-                            const float* __restrict__ o, const float* __restrict__ dout,
-                            const float* __restrict__ lse, float* __restrict__ dq,
-                            float* __restrict__ delta, int kv_group, int heads, int n, int j) {
-  __shared__ float qs[kDqRows][kF32Pad];
-  __shared__ float dos[kDqRows][kF32Pad];
-  __shared__ float ks[kDqKeys][kHeadDim];
-  __shared__ float vs[kDqKeys][kHeadDim];
-  __shared__ float bs[kDqKeys];
-
-  const int bh = sample_head();
-  const int q0 = blockIdx.x * kDqRows;
-  const int row = q0 + threadIdx.x;
-  const bool active = row < n;
-  const size_t kv_base = static_cast<size_t>(bh / kv_group) * j * kHeadDim;
-  const float* brow = bias_row(bias, bh, heads, j);
-  const size_t rows_base = (static_cast<size_t>(bh) * n + q0) * kHeadDim;
-
-  for (int e = threadIdx.x; e < kDqRows * kHeadDim; e += kDqRows) {
-    const int r = e / kHeadDim, c = e % kHeadDim;
-    const bool valid = q0 + r < n;
-    qs[r][c] = valid ? q[rows_base + e] : 0.f;
-    dos[r][c] = valid ? dout[rows_base + e] : 0.f;
-  }
-  __syncthreads();
-  float d_row = 0.f;
-  if (active) {
-    const float* op = o + rows_base + static_cast<size_t>(threadIdx.x) * kHeadDim;
-    for (int c = 0; c < kHeadDim; ++c) d_row = fmaf(dos[threadIdx.x][c], op[c], d_row);
-    delta[static_cast<size_t>(bh) * n + row] = d_row;
-  }
-  const float l_row = active ? lse[static_cast<size_t>(bh) * n + row] : INFINITY;
-  const float l_adj = dropped_row(l_row) ? -logf(static_cast<float>(j)) : 0.f;  // 0: same bits
-
-  float acc[kHeadDim];
-#pragma unroll
-  for (int c = 0; c < kHeadDim; ++c) acc[c] = 0.f;
-  for (int k0 = 0; k0 < j; k0 += kDqKeys) {
-    const int kt = min(kDqKeys, j - k0);
-    __syncthreads();
-    for (int e = threadIdx.x; e < kDqKeys * kHeadDim; e += kDqRows) {
-      const int r = e / kHeadDim, c = e % kHeadDim;
-      const size_t idx = kv_base + static_cast<size_t>(k0 + r) * kHeadDim + c;
-      ks[r][c] = r < kt ? k[idx] : 0.f;
-      vs[r][c] = r < kt ? v[idx] : 0.f;
-    }
-    if (threadIdx.x < kDqKeys)
-      bs[threadIdx.x] = (brow != nullptr && threadIdx.x < kt) ? brow[k0 + threadIdx.x] : 0.f;
-    __syncthreads();
-#pragma unroll 1
-    for (int r = 0; r < kDqKeys; ++r) {
-      float s = 0.f, dp = 0.f;
-#pragma unroll
-      for (int c = 0; c < kHeadDim; ++c) {
-        s = fmaf(qs[threadIdx.x][c], ks[r][c], s);
-        dp = fmaf(dos[threadIdx.x][c], vs[r][c], dp);
-      }
-      const float p = r < kt ? expf(s + bs[r] - l_row + l_adj) : 0.f;
-      const float ds = p * (dp - d_row);
-#pragma unroll
-      for (int c = 0; c < kHeadDim; ++c) acc[c] = fmaf(ds, ks[r][c], acc[c]);
-    }
-  }
-  if (active) {
-    float* dqp = dq + (static_cast<size_t>(bh) * n + row) * kHeadDim;
-#pragma unroll
-    for (int c = 0; c < kHeadDim; ++c) dqp[c] = acc[c];
-  }
-}
-
-// Pass 2 in float32: one thread per key of (sample, head) bh; dk and dv of
-// that head's n query rows into the float32 slice bh.
-__global__ void __launch_bounds__(kKvKeys)
-    attention_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                              const float* __restrict__ v, const float* __restrict__ bias,
-                              const float* __restrict__ dout, const float* __restrict__ lse,
-                              const float* __restrict__ delta, float* __restrict__ dk_acc,
-                              float* __restrict__ dv_acc, int kv_group, int heads, int n, int j) {
-  __shared__ float ks[kKvKeys][kF32Pad];
-  __shared__ float vs[kKvKeys][kF32Pad];
-  __shared__ float qs[kKvRows][kHeadDim];
-  __shared__ float dos[kKvRows][kHeadDim];
-  __shared__ float lse_s[kKvRows];
-  __shared__ float adj_s[kKvRows];  // -log j for a dropped row, else 0
-  __shared__ float d_s[kKvRows];
-
-  const int bh = sample_head();
-  const int k0 = blockIdx.x * kKvKeys;
-  const int key = k0 + threadIdx.x;
-  const size_t kv_base = static_cast<size_t>(bh / kv_group) * j * kHeadDim;
-  const float* brow = bias_row(bias, bh, heads, j);
-  for (int e = threadIdx.x; e < kKvKeys * kHeadDim; e += kKvKeys) {
-    const int r = e / kHeadDim, c = e % kHeadDim;
-    const bool valid = k0 + r < j;
-    const size_t idx = kv_base + static_cast<size_t>(k0) * kHeadDim + e;
-    ks[r][c] = valid ? k[idx] : 0.f;
-    vs[r][c] = valid ? v[idx] : 0.f;
-  }
-  const float b_key = (brow != nullptr && key < j) ? brow[key] : 0.f;
-
-  float dk[kHeadDim], dv[kHeadDim];
-#pragma unroll
-  for (int c = 0; c < kHeadDim; ++c) dk[c] = dv[c] = 0.f;
-  const size_t q_base = static_cast<size_t>(bh) * n;
-  for (int r0 = 0; r0 < n; r0 += kKvRows) {
-    const int rt = min(kKvRows, n - r0);
-    __syncthreads();
-    for (int e = threadIdx.x; e < kKvRows * kHeadDim; e += kKvKeys) {
-      const int r = e / kHeadDim, c = e % kHeadDim;
-      const size_t idx = (q_base + r0) * kHeadDim + e;
-      qs[r][c] = r < rt ? q[idx] : 0.f;
-      dos[r][c] = r < rt ? dout[idx] : 0.f;
-    }
-    if (threadIdx.x < kKvRows) {
-      const bool valid = static_cast<int>(threadIdx.x) < rt;
-      const float l = valid ? lse[q_base + r0 + threadIdx.x] : INFINITY;  // p = 0
-      lse_s[threadIdx.x] = l;
-      adj_s[threadIdx.x] = dropped_row(l) ? -logf(static_cast<float>(j)) : 0.f;
-      d_s[threadIdx.x] = valid ? delta[q_base + r0 + threadIdx.x] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 1
-    for (int r = 0; r < kKvRows; ++r) {
-      float s = 0.f, dp = 0.f;
-#pragma unroll
-      for (int c = 0; c < kHeadDim; ++c) {
-        s = fmaf(ks[threadIdx.x][c], qs[r][c], s);
-        dp = fmaf(vs[threadIdx.x][c], dos[r][c], dp);
-      }
-      const float p = expf(s + b_key - lse_s[r] + adj_s[r]);
-      const float ds = p * (dp - d_s[r]);
-#pragma unroll
-      for (int c = 0; c < kHeadDim; ++c) {
-        dv[c] = fmaf(p, dos[r][c], dv[c]);
-        dk[c] = fmaf(ds, qs[r][c], dk[c]);
-      }
-    }
-  }
-  if (key < j) {
-    const size_t out = (static_cast<size_t>(bh) * j + key) * kHeadDim;
-#pragma unroll
-    for (int c = 0; c < kHeadDim; ++c) {
-      dk_acc[out + c] = dk[c];
-      dv_acc[out + c] = dv[c];
-    }
-  }
-}
 
 // ---- bfloat16 helpers ------------------------------------------------------
 constexpr float kLog2e = 1.4426950408889634f;
@@ -647,20 +442,22 @@ __device__ __forceinline__ float fast_exp2(float x) {  // MUFU.EX2; exp2(-inf) =
 
 // The ring's barriers: `full` completes when a stage's copies have landed,
 // `empty` when every consumer warp is done with it.
-struct Ring {
+template <int kS>
+struct StageRing {
   uint32_t full0, empty0;
   __device__ uint32_t full(int s) const { return full0 + 8 * s; }
   __device__ uint32_t empty(int s) const { return empty0 + 8 * s; }
-  __device__ static uint32_t parity(int it) { return (it / kStages) & 1; }
+  __device__ static uint32_t parity(int it) { return (it / kS) & 1; }
 };
+using Ring = StageRing<kStages>;
 
 // One-time setup by thread 0: the "loaded once" barrier and the ring.
-template <int kWgs>
-__device__ __forceinline__ Ring init_barriers(uint32_t bars) {
-  const Ring ring{bars + 8, bars + 8 + 8 * kStages};
+template <int kWgs, int kS = kStages>
+__device__ __forceinline__ StageRing<kS> init_barriers(uint32_t bars) {
+  const StageRing<kS> ring{bars + 8, bars + 8 + 8 * kS};
   if (threadIdx.x == 0) {
     mbar_init(bars, 1);
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < kS; ++s) {
       mbar_init(ring.full(s), 1);
       mbar_init(ring.empty(s), 4 * kWgs);
     }
@@ -675,7 +472,8 @@ __device__ __forceinline__ void warp_arrive(uint32_t bar) {
   if ((threadIdx.x & 31) == 0) mbar_arrive(bar);
 }
 
-__device__ __forceinline__ void release(const Ring& ring, int s) {
+template <int kS>
+__device__ __forceinline__ void release(const StageRing<kS>& ring, int s) {
   __syncwarp();
   if ((threadIdx.x & 31) == 0) mbar_arrive(ring.empty(s));
 }
@@ -912,12 +710,14 @@ __device__ __forceinline__ void ds_tile(float (&s_acc)[kR], const float (&dp_acc
     }
 }
 
-__device__ __forceinline__ void ds_at(float (&s_acc)[32], const float (&dp_acc)[32],
+// ds_tile for key tile `tile` of 2 kR keys (warp-uniform branch).
+template <int kR>
+__device__ __forceinline__ void ds_at(float (&s_acc)[kR], const float (&dp_acc)[kR],
                                       const float (&neg_lse)[2], const float (&floor_r)[2],
                                       const float (&d_r)[2], const float* brow, int tile, int j,
                                       int t) {
-  const int k0 = tile * kRingTile, kt = min(kRingTile, j - k0);
-  if (brow != nullptr || kt < kRingTile)
+  const int k0 = tile * 2 * kR, kt = min(2 * kR, j - k0);
+  if (brow != nullptr || kt < 2 * kR)
     ds_tile<true>(s_acc, dp_acc, neg_lse, floor_r, d_r, brow, k0, kt, t);
   else
     ds_tile<false>(s_acc, dp_acc, neg_lse, floor_r, d_r, brow, k0, kt, t);
@@ -1069,28 +869,32 @@ __global__ void __launch_bounds__(128 * (kBwdWgs + 1), 1)
 // S^T and dP^T; rows past the sample (only in a ragged tile) get P = 0, a
 // dropped row (its lse the mask floor) 1/j: fmaf(x, log2e, 0) rounds as the
 // product alone, so every other row keeps its bits.
-template <bool kEdge>
-__device__ __forceinline__ void dst_tile(float (&st)[32], float (&dpt)[32], const float* ls,
+template <bool kEdge, int kR>  // kR = 32 (64 rows) or 16 (32 rows)
+__device__ __forceinline__ void dst_tile(float (&st)[kR], float (&dpt)[kR], const float* ls,
                                          const float* ds, const float (&b_key)[2], int valid_rows,
                                          float neg_log2_j, int t) {
 #pragma unroll
-  for (int c = 0; c < 8; ++c)
+  for (int c = 0; c < kR / 4; ++c)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int col = 8 * c + 2 * t + (e & 1);
-      float l = ls[col];
-      if constexpr (kEdge) l = col < valid_rows ? l : INFINITY;
+      float l = ls[col], d = ds[col];
+      if constexpr (kEdge) {
+        l = col < valid_rows ? l : INFINITY;
+        d = col < valid_rows ? d : 0.f;
+      }
       const float adj = dropped_row(l) ? neg_log2_j : 0.f;
       const float p = fast_exp2(fmaf(st[4 * c + e] + b_key[e >> 1] - l, kLog2e, adj));
       st[4 * c + e] = p;
-      dpt[4 * c + e] = p * (dpt[4 * c + e] - ds[col]);
+      dpt[4 * c + e] = p * (dpt[4 * c + e] - d);
     }
 }
 
-__device__ __forceinline__ void dst_at(float (&st)[32], float (&dpt)[32], const float* ls,
+template <int kR>
+__device__ __forceinline__ void dst_at(float (&st)[kR], float (&dpt)[kR], const float* ls,
                                        const float* ds, const float (&b_key)[2], int valid_rows,
                                        float neg_log2_j, int t) {
-  if (valid_rows < kRingTile)
+  if (valid_rows < 2 * kR)
     dst_tile<true>(st, dpt, ls, ds, b_key, valid_rows, neg_log2_j, t);
   else
     dst_tile<false>(st, dpt, ls, ds, b_key, valid_rows, neg_log2_j, t);
@@ -1893,6 +1697,733 @@ __global__ void __launch_bounds__(128 * (kWgs + 1), 1)
   }
 }
 
+// ---- float32 attention for Hopper: 3xTF32 on wgmma -------------------------
+// (design note at the head of the file). Each float32 operand x enters the
+// tensor cores as two tf32 parts, big = tf32(x) and small = tf32(x - big),
+// and a product A B is taken as A_small B_big + A_big B_small + A_big B_big
+// in float32 accumulators. wgmma reads tf32 from shared memory K-major only,
+// so every operand whose contraction runs over keys or query rows (V in
+// O += P V, K in dq += dS K, dO and Q in dv += P^T dO and dk += dS^T Q) is
+// written transposed by attention_tf32_split_t_kernel, already split (in
+// the backward the same read also writes q, dO and K split in their own
+// layout); V in the backward and K in the forward are split by
+// attention_tf32_split_kernel, and the forward splits Q in shared memory.
+// A P or dS accumulator enters as register A fragments.
+// q-batch qb: a sample (multi-query, its rows the h * n rows across heads)
+// or a (sample, head) (multi-head, its n rows); its K/V are the same index,
+// its bias row qb / bias_div.
+constexpr int kF32Stages = 2;                      // depth of the float32 rings
+constexpr int kF32Tile = 64 * kHeadDim * 4;        // (64, 64) float32: two swizzle atoms, 16 KB
+constexpr int kF32Half = kF32Tile / 2;             // (32, 64) or (64, 32) float32, 8 KB
+constexpr int kF32Keys1 = 32;                      // keys per ring stage of pass 1
+constexpr int kF32Rows2 = 32;                      // query rows per ring stage of pass 2
+constexpr int kF32Window = 4;  // pass 2: row tiles summed on the tensor cores between flushes
+constexpr int kF32Totals = 64 * 128 * 4;  // pass 2: dk, dv float32 totals, 64 per thread
+
+using F32Ring = StageRing<kF32Stages>;
+
+constexpr int f32_fwd_smem(int wgs) {  // Q raw/big and small per warpgroup, ring of Kb Ks VTb VTs
+  return kSmemAlign + 2 * wgs * kF32Tile + 4 * kF32Stages * kF32Tile + 8 * (1 + 2 * kF32Stages);
+}
+constexpr int f32_dq_smem(int wgs) {  // Qb Qs dOb dOs per warpgroup, ring of Kb Ks Vb Vs KTb KTs
+  return kSmemAlign + 4 * wgs * kF32Tile + 6 * kF32Stages * kF32Half + 8 * (1 + 2 * kF32Stages);
+}
+constexpr int f32_dkdv_smem() {  // Kb Ks Vb Vs, ring of Qb Qs dOb dOs QTb QTs dOTb dOTs, lse,
+                                 // D; dk/dv totals
+  return kSmemAlign + 4 * kF32Tile + kF32Stages * (8 * kF32Half + 2 * kF32Rows2 * 4) +
+         kF32Totals + 8 * (1 + 2 * kF32Stages);
+}
+static_assert(f32_dq_smem(2) <= 232448 && f32_dkdv_smem() <= 232448,
+              "a float32 backward pass exceeds the shared memory of a block");
+
+__device__ __forceinline__ uint32_t tf32_rna(float x) {  // round to nearest, ties away
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = big + small to ~2^-22 |x|: big = tf32(x), small = tf32(x - big) (exact difference)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+// Byte offset of k8 step kk in a K-major float32 tile of `rows` rows: 32
+// floats (128 bytes) of each row per swizzle atom, atoms `rows` * 128 B apart.
+__host__ __device__ constexpr uint32_t kstep_off(int kk, int rows) {
+  return static_cast<uint32_t>((kk >> 2) * rows * 128 + (kk & 3) * 32);
+}
+
+#define MMT_WGMMA_D16                                                                    \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define MMT_WGMMA_OUT16(d)                                                               \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),    \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),         \
+      "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+
+// d (64 x 64 or 64 x 32, float32) (+)= A B over one k8 step, tf32 A and B
+// K-major tiles in shared memory.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " MMT_WGMMA_D32
+      ", %32, %33, p, 1, 1;\n}\n"
+      : MMT_WGMMA_OUT32(d)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " MMT_WGMMA_D16
+      ", %16, %17, p, 1, 1;\n}\n"
+      : MMT_WGMMA_OUT16(d)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 64, float32) (+)= A B over one k8 step, A (64 x 8) tf32 from
+// registers, B a K-major tf32 tile in shared memory.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " MMT_WGMMA_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : MMT_WGMMA_OUT32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// acc (64 x 2 kR) = A B^T over d = 64 in 3xTF32: A a 64-row tile and B a
+// (2 kR)-row tile, each K-major over d (two swizzle atoms) in big and small
+// parts: S = Q K^T, dP = dO V^T, S^T = K Q^T, dP^T = V dO^T. The small
+// products first. Issued, not waited for.
+template <int kR>
+__device__ __forceinline__ void gemm_abt_x3(float (&acc)[kR], uint32_t a_big, uint32_t a_small,
+                                            uint32_t b_big, uint32_t b_small) {
+  const uint64_t ab = tile_desc(a_big, 16), as = tile_desc(a_small, 16);
+  const uint64_t bb = tile_desc(b_big, 16), bs = tile_desc(b_small, 16);
+#pragma unroll
+  for (int kk = 0; kk < kHeadDim / 8; ++kk) {
+    const uint32_t oa = kstep_off(kk, 64) >> 4, ob = kstep_off(kk, 2 * kR) >> 4;
+    wgmma_tf32(acc, as + oa, bb + ob, kk);
+    wgmma_tf32(acc, ab + oa, bs + ob, 1);
+    wgmma_tf32(acc, ab + oa, bb + ob, 1);
+  }
+}
+
+// acc (64 x 64) (+)= P B over 8 kSteps keys (or rows) in 3xTF32: P in
+// registers as big and small A fragments (split_a), B a 64-row tile K-major
+// over them (tf32_split_t's order): O = P V, dq = dS K, dv += P^T dO,
+// dk += dS^T Q; kFresh overwrites acc. Issued, not waited for.
+template <bool kFresh, int kSteps>
+__device__ __forceinline__ void gemm_pb_x3(float (&acc)[32], const uint32_t (&pb)[kSteps][4],
+                                           const uint32_t (&ps)[kSteps][4], uint32_t b_big,
+                                           uint32_t b_small) {
+  const uint64_t bb = tile_desc(b_big, 16), bs = tile_desc(b_small, 16);
+#pragma unroll
+  for (int kk = 0; kk < kSteps; ++kk) {
+    const uint32_t ob = kstep_off(kk, 64) >> 4;
+    wgmma_tf32(acc, ps[kk], bb + ob, kFresh && kk == 0 ? 0 : 1);
+    wgmma_tf32(acc, pb[kk], bs + ob, 1);
+    wgmma_tf32(acc, pb[kk], bb + ob, 1);
+  }
+}
+
+// acc += tile on the CUDA cores, rounded to nearest: the promotion of the
+// tensor cores' truncating sums (header note).
+__device__ __forceinline__ void add_regs(float (&acc)[32], const float (&tile)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] += tile[i];
+}
+
+// The float32 accumulator p of a 64 x (8 kSteps) tile as big and small tf32
+// A fragments, one per k8 step. Thread (g, t) holds columns 2t and 2t + 1 of
+// each 8, where the A layout reads columns t and t + 4: so column i of a k8
+// step's B is key (or row) perm(i) = i < 4 ? 2i : 2(i - 4) + 1 of those 8,
+// the order attention_tf32_split_t_kernel writes.
+template <int kSteps>
+__device__ __forceinline__ void split_a(uint32_t (&pb)[kSteps][4], uint32_t (&ps)[kSteps][4],
+                                        const float (&p)[4 * kSteps]) {
+#pragma unroll
+  for (int kk = 0; kk < kSteps; ++kk) {
+    split_tf32(p[4 * kk + 0], pb[kk][0], ps[kk][0]);  // row g,     column t
+    split_tf32(p[4 * kk + 2], pb[kk][1], ps[kk][1]);  // row g + 8, column t
+    split_tf32(p[4 * kk + 1], pb[kk][2], ps[kk][2]);  // row g,     column t + 4
+    split_tf32(p[4 * kk + 3], pb[kk][3], ps[kk][3]);  // row g + 8, column t + 4
+  }
+}
+
+// The big and small tf32 parts of `count4` float4s, same layout.
+__global__ void attention_tf32_split_kernel(const float4* __restrict__ x, float4* __restrict__ big,
+                                            float4* __restrict__ small, size_t count4) {
+  for (size_t e = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; e < count4;
+       e += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const float4 v = x[e];
+    uint32_t b[4], s[4];
+    split_tf32(v.x, b[0], s[0]);
+    split_tf32(v.y, b[1], s[1]);
+    split_tf32(v.z, b[2], s[2]);
+    split_tf32(v.w, b[3], s[3]);
+    big[e] = make_float4(__uint_as_float(b[0]), __uint_as_float(b[1]), __uint_as_float(b[2]),
+                         __uint_as_float(b[3]));
+    small[e] = make_float4(__uint_as_float(s[0]), __uint_as_float(s[1]), __uint_as_float(s[2]),
+                           __uint_as_float(s[3]));
+  }
+}
+
+// (batch, rows, 64) float32 transposed to (batch, 64, rows_pad) in big and
+// small tf32 parts, zero past `rows`; within each 8 columns, column i holds
+// row perm(i) (split_a). Where `big` is not null, also the parts in x's own
+// layout (attention_tf32_split_kernel's), from the same read. One block per
+// 32 rows of a batch entry.
+__global__ void __launch_bounds__(256)
+    attention_tf32_split_t_kernel(const float* __restrict__ x, float* __restrict__ big,
+                                  float* __restrict__ small, float* __restrict__ big_t,
+                                  float* __restrict__ small_t, int rows, int rows_pad) {
+  __shared__ float tile[32][kHeadDim + 1];
+  const int tiles = rows_pad / 32;
+  const size_t b = blockIdx.x / tiles;
+  const int r0 = static_cast<int>(blockIdx.x % tiles) * 32;
+  for (int e = threadIdx.x; e < 32 * kHeadDim; e += 256) {
+    const int r = e / kHeadDim, c = e % kHeadDim;
+    const size_t at = (b * rows + r0 + r) * kHeadDim + c;
+    const float v = r0 + r < rows ? x[at] : 0.f;
+    tile[r][c] = v;
+    if (big != nullptr && r0 + r < rows) {
+      uint32_t hi, lo;
+      split_tf32(v, hi, lo);
+      big[at] = __uint_as_float(hi);
+      small[at] = __uint_as_float(lo);
+    }
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < 32 * kHeadDim; e += 256) {
+    const int c = e / 32, p = e % 32, i = p & 7;
+    const int src = (p & ~7) + (i < 4 ? 2 * i : 2 * (i - 4) + 1);
+    uint32_t hi, lo;
+    split_tf32(tile[src][c], hi, lo);
+    const size_t out = (b * kHeadDim + c) * rows_pad + r0 + p;
+    big_t[out] = __uint_as_float(hi);
+    small_t[out] = __uint_as_float(lo);
+  }
+}
+
+// Rows r0 .. r0 + box_rows - 1 of entry b of a (batch, rows, 64) float32
+// map (boxes of 32 floats) into two swizzle atoms at dst.
+__device__ __forceinline__ void tma_rows_f32(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                             int r0, int b, int box_rows) {
+  tma_load_3d(dst, map, bar, 0, r0, b);
+  tma_load_3d(dst + box_rows * 128, map, bar, 32, r0, b);
+}
+
+// Columns c0 .. c0 + 32 atoms - 1 of entry b of a (batch, 64, cols) map
+// (boxes of 64 rows x 32 floats): `atoms` swizzle atoms at dst.
+__device__ __forceinline__ void tma_cols_f32(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                             int c0, int b, int atoms) {
+  for (int a = 0; a < atoms; ++a) tma_load_3d(dst + a * kF32Half, map, bar, c0 + 32 * a, 0, b);
+}
+
+// The consumer warpgroup's (64, 64) float32 tile at `tile` split in place
+// into its big part, the small part to `small` (same swizzled layout), and
+// made visible to wgmma once the warpgroup has passed a barrier. `tid` is
+// the thread's index in the warpgroup.
+__device__ __forceinline__ void split_in_smem(uint8_t* tile, uint8_t* small, int tid) {
+  float4* x = reinterpret_cast<float4*>(tile);
+  float4* lo = reinterpret_cast<float4*>(small);
+#pragma unroll 4
+  for (int e = tid; e < kF32Tile / 16; e += 128) {
+    const float4 v = x[e];
+    uint32_t b[4], s[4];
+    split_tf32(v.x, b[0], s[0]);
+    split_tf32(v.y, b[1], s[1]);
+    split_tf32(v.z, b[2], s[2]);
+    split_tf32(v.w, b[3], s[3]);
+    x[e] = make_float4(__uint_as_float(b[0]), __uint_as_float(b[1]), __uint_as_float(b[2]),
+                       __uint_as_float(b[3]));
+    lo[e] = make_float4(__uint_as_float(s[0]), __uint_as_float(s[1]), __uint_as_float(s[2]),
+                        __uint_as_float(s[3]));
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Forward, float32. Grid (ceil(rows / (64 kWgs)), heads or 1, batch): a
+// block owns 64 kWgs rows of q-batch qb, consumer warpgroup wg the wg-th 64;
+// the producer streams K (big, small) and V^T (big, small) of 64 keys a
+// stage. Each consumer runs one tile behind on the tensor cores as the bf16
+// forward: S of tile it + 1 is issued with O += P V of tile it.
+template <int kWgs>
+__global__ void __launch_bounds__(128 * (kWgs + 1), 1)
+    attention_tf32_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
+                              const __grid_constant__ CUtensorMap kb_map,
+                              const __grid_constant__ CUtensorMap ks_map,
+                              const __grid_constant__ CUtensorMap vtb_map,
+                              const __grid_constant__ CUtensorMap vts_map,
+                              const float* __restrict__ bias, float* __restrict__ o,
+                              float* __restrict__ lse, int rows, int j, int bias_div) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t q_s = align_smem(smem_raw);
+  const uint32_t qs_s = q_s + kWgs * kF32Tile;
+  const uint32_t ring_s = qs_s + kWgs * kF32Tile;  // a stage: Kb, Ks, VTb, VTs
+  const uint32_t q_full = ring_s + kF32Stages * 4 * kF32Tile;
+  const F32Ring ring = init_barriers<kWgs, kF32Stages>(q_full);
+  const int qb = sample_head(), row0 = blockIdx.x * kWgs * kWgRows;
+  const int tiles = (j + kRingTile - 1) / kRingTile;
+  const int warp = threadIdx.x >> 5;
+  const auto stage = [&](int s) { return ring_s + s * 4 * kF32Tile; };
+
+  if (warp < 4) {  // producer warpgroup: one thread issues every copy
+    producer_registers();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, kWgs * kF32Tile);
+      for (int h = 0; h < kWgs; ++h)
+        tma_rows_f32(q_s + h * kF32Tile, &q_map, q_full, row0 + h * kWgRows, qb, 64);
+      for (int it = 0; it < tiles; ++it) {
+        const int s = it % kF32Stages;
+        mbar_wait(ring.empty(s), F32Ring::parity(it) ^ 1);
+        mbar_expect_tx(ring.full(s), 4 * kF32Tile);
+        tma_rows_f32(stage(s), &kb_map, ring.full(s), it * kRingTile, qb, 64);
+        tma_rows_f32(stage(s) + kF32Tile, &ks_map, ring.full(s), it * kRingTile, qb, 64);
+        tma_cols_f32(stage(s) + 2 * kF32Tile, &vtb_map, ring.full(s), it * kRingTile, qb, 2);
+        tma_cols_f32(stage(s) + 3 * kF32Tile, &vts_map, ring.full(s), it * kRingTile, qb, 2);
+      }
+    }
+    return;
+  }
+  consumer_registers<kWgs>();
+  const int wg = (warp >> 2) - 1, w = warp & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const uint32_t my_q = q_s + wg * kF32Tile, my_qs = qs_s + wg * kF32Tile;
+  const auto generic = [&](uint32_t addr) { return smem_raw + (addr - smem_addr(smem_raw)); };
+  const float* brow = bias == nullptr ? nullptr : bias + static_cast<size_t>(qb / bias_div) * j;
+
+  float o_acc[32], o_tile[32], s_acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o_acc[i] = 0.f;
+  float row_max[2] = {-INFINITY, -INFINITY};
+  float row_sum[2] = {0.f, 0.f};  // this thread's share of the two rows' sums
+  float corr[2];
+
+  mbar_wait(q_full, 0);
+  split_in_smem(generic(my_q), generic(my_qs), threadIdx.x & 127);
+  if (wg == 0) asm volatile("bar.sync 1, 128;\n" ::: "memory");  // this warpgroup's split
+  else asm volatile("bar.sync 2, 128;\n" ::: "memory");
+  mbar_wait(ring.full(0), 0);
+  wgmma_fence();
+  gemm_abt_x3(s_acc, my_q, my_qs, stage(0), stage(0) + kF32Tile);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(s_acc);
+  softmax_at(s_acc, row_max, row_sum, corr, brow, 0, j, t);
+
+  for (int it = 0; it + 1 < tiles; ++it) {  // the last tile peeled off
+    const int s = it % kF32Stages, sn = (it + 1) % kF32Stages;
+    uint32_t pb[8][4], ps[8][4];
+    split_a(pb, ps, s_acc);
+    rescale(o_acc, corr);
+    mbar_wait(ring.full(sn), F32Ring::parity(it + 1));
+    fence_regs(s_acc);
+    fence_regs(o_tile);
+    wgmma_fence();
+    gemm_abt_x3(s_acc, my_q, my_qs, stage(sn), stage(sn) + kF32Tile);
+    wgmma_commit();
+    wgmma_fence();
+    gemm_pb_x3<true>(o_tile, pb, ps, stage(s) + 2 * kF32Tile, stage(s) + 3 * kF32Tile);  // P V
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(s_acc);
+    softmax_at(s_acc, row_max, row_sum, corr, brow, it + 1, j, t);
+    wgmma_wait<0>();
+    fence_regs(o_tile);
+    add_regs(o_acc, o_tile);
+    release(ring, s);
+  }
+  {
+    const int s = (tiles - 1) % kF32Stages;
+    uint32_t pb[8][4], ps[8][4];
+    split_a(pb, ps, s_acc);
+    rescale(o_acc, corr);
+    fence_regs(o_tile);
+    wgmma_fence();
+    gemm_pb_x3<true>(o_tile, pb, ps, stage(s) + 2 * kF32Tile, stage(s) + 3 * kF32Tile);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o_tile);
+    add_regs(o_acc, o_tile);
+    release(ring, s);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float total = row_sum[i];
+    total += __shfl_xor_sync(0xffffffffu, total, 1);
+    total += __shfl_xor_sync(0xffffffffu, total, 2);
+    const int row = row0 + wg * kWgRows + w * 16 + g + 8 * i;
+    if (row < rows) {
+      const size_t r = static_cast<size_t>(qb) * rows + row;
+      float* op = o + r * kHeadDim;
+#pragma unroll
+      for (int c = 0; c < 8; ++c)  // the late divide
+        *reinterpret_cast<float2*>(op + 8 * c + 2 * t) =
+            make_float2(o_acc[4 * c + 2 * i] / total, o_acc[4 * c + 2 * i + 1] / total);
+      if (lse != nullptr && t == 0) lse[r] = row_max[i] + logf(total);
+    }
+  }
+}
+
+// Backward pass 1, float32 (Q-major). Grid (ceil(rows / (64 kWgs)), heads or
+// 1, batch), rows as the forward: D = rowsum(dO * O) into `delta` and the
+// rows' lse into `lse_copy`, each q-batch's rows at a multiple of 32 floats
+// (qb * rows32: pass 2's boxes start 16-byte aligned, as TMA needs), then over
+// key tiles of 32: S = Q K^T, dP = dO V^T, dS = P (dP - D), dq += dS K, one
+// tile behind on the tensor cores. Q and dO (big, small) are loaded once; a
+// stage holds K and V (big, small; 32 keys) and K^T (big, small).
+template <int kWgs>
+__global__ void __launch_bounds__(128 * (kWgs + 1), 1)
+    attention_tf32_bwd_dq_kernel(const __grid_constant__ CUtensorMap qb_map,
+                                 const __grid_constant__ CUtensorMap qs_map,
+                                 const __grid_constant__ CUtensorMap dob_map,
+                                 const __grid_constant__ CUtensorMap dos_map,
+                                 const __grid_constant__ CUtensorMap kb_map,
+                                 const __grid_constant__ CUtensorMap ks_map,
+                                 const __grid_constant__ CUtensorMap vb_map,
+                                 const __grid_constant__ CUtensorMap vs_map,
+                                 const __grid_constant__ CUtensorMap ktb_map,
+                                 const __grid_constant__ CUtensorMap kts_map,
+                                 const float* __restrict__ bias, const float* __restrict__ o,
+                                 const float* __restrict__ dout, const float* __restrict__ lse,
+                                 float* __restrict__ dq, float* __restrict__ delta,
+                                 float* __restrict__ lse_copy, int rows, int rows32, int j,
+                                 int bias_div) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t rows_s = align_smem(smem_raw);  // per warpgroup: Qb, Qs, dOb, dOs
+  const uint32_t ring_s = rows_s + 4 * kWgs * kF32Tile;  // a stage: Kb Ks Vb Vs KTb KTs
+  const uint32_t rows_full = ring_s + kF32Stages * 6 * kF32Half;
+  const F32Ring ring = init_barriers<kWgs, kF32Stages>(rows_full);
+  const int qb = sample_head(), row0 = blockIdx.x * kWgs * kWgRows;
+  const int tiles = (j + kF32Keys1 - 1) / kF32Keys1;
+  const int warp = threadIdx.x >> 5;
+  const auto stage = [&](int s) { return ring_s + s * 6 * kF32Half; };
+
+  if (warp < 4) {
+    producer_registers();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(rows_full, 4 * kWgs * kF32Tile);
+      for (int h = 0; h < kWgs; ++h) {
+        const uint32_t dst = rows_s + 4 * h * kF32Tile;
+        const int r0 = row0 + h * kWgRows;
+        tma_rows_f32(dst, &qb_map, rows_full, r0, qb, 64);
+        tma_rows_f32(dst + kF32Tile, &qs_map, rows_full, r0, qb, 64);
+        tma_rows_f32(dst + 2 * kF32Tile, &dob_map, rows_full, r0, qb, 64);
+        tma_rows_f32(dst + 3 * kF32Tile, &dos_map, rows_full, r0, qb, 64);
+      }
+      for (int it = 0; it < tiles; ++it) {
+        const int s = it % kF32Stages, k0 = it * kF32Keys1;
+        mbar_wait(ring.empty(s), F32Ring::parity(it) ^ 1);
+        mbar_expect_tx(ring.full(s), 6 * kF32Half);
+        tma_rows_f32(stage(s), &kb_map, ring.full(s), k0, qb, kF32Keys1);
+        tma_rows_f32(stage(s) + kF32Half, &ks_map, ring.full(s), k0, qb, kF32Keys1);
+        tma_rows_f32(stage(s) + 2 * kF32Half, &vb_map, ring.full(s), k0, qb, kF32Keys1);
+        tma_rows_f32(stage(s) + 3 * kF32Half, &vs_map, ring.full(s), k0, qb, kF32Keys1);
+        tma_cols_f32(stage(s) + 4 * kF32Half, &ktb_map, ring.full(s), k0, qb, 1);
+        tma_cols_f32(stage(s) + 5 * kF32Half, &kts_map, ring.full(s), k0, qb, 1);
+      }
+    }
+    return;
+  }
+  consumer_registers<kWgs>();
+  const int wg = (warp >> 2) - 1, w = warp & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const uint32_t my_rows = rows_s + 4 * wg * kF32Tile;
+  const uint32_t my_qb = my_rows, my_qs = my_rows + kF32Tile;
+  const uint32_t my_dob = my_rows + 2 * kF32Tile, my_dos = my_rows + 3 * kF32Tile;
+  const float* brow = bias == nullptr ? nullptr : bias + static_cast<size_t>(qb / bias_div) * j;
+
+  // D and the log-sum-exp of this thread's two rows: each of a quad's 4
+  // threads sums 16 of the 64 columns
+  float d_r[2], neg_lse[2], floor_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + wg * kWgRows + w * 16 + g + 8 * i;
+    const bool valid = row < rows;
+    const size_t r = static_cast<size_t>(qb) * rows + (valid ? row : 0);
+    float acc = 0.f;
+    if (valid) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float4 ov = *reinterpret_cast<const float4*>(o + r * kHeadDim + t * 16 + c * 4);
+        const float4 dv = *reinterpret_cast<const float4*>(dout + r * kHeadDim + t * 16 + c * 4);
+        acc = fmaf(dv.x, ov.x, acc);
+        acc = fmaf(dv.y, ov.y, acc);
+        acc = fmaf(dv.z, ov.z, acc);
+        acc = fmaf(dv.w, ov.w, acc);
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    d_r[i] = acc;
+    const float l = valid ? lse[r] : INFINITY;  // past the rows: P = 0
+    row_scalars(l, j, floor_r[i], neg_lse[i]);
+    if (valid && t == 0) {
+      const size_t r32 = static_cast<size_t>(qb) * rows32 + row;
+      delta[r32] = acc;
+      lse_copy[r32] = l;
+    }
+  }
+
+  float dq_acc[32], dq_tile[32], s_acc[16], dp_acc[16];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dq_acc[i] = 0.f;
+  mbar_wait(rows_full, 0);
+  mbar_wait(ring.full(0), 0);
+  wgmma_fence();
+  gemm_abt_x3(s_acc, my_qb, my_qs, stage(0), stage(0) + kF32Half);
+  gemm_abt_x3(dp_acc, my_dob, my_dos, stage(0) + 2 * kF32Half, stage(0) + 3 * kF32Half);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(s_acc);
+  fence_regs(dp_acc);
+  ds_at(s_acc, dp_acc, neg_lse, floor_r, d_r, brow, 0, j, t);
+
+  for (int it = 0; it + 1 < tiles; ++it) {  // the last tile peeled off
+    const int s = it % kF32Stages, sn = (it + 1) % kF32Stages;
+    uint32_t db[4][4], ds[4][4];
+    split_a(db, ds, s_acc);
+    mbar_wait(ring.full(sn), F32Ring::parity(it + 1));
+    fence_regs(s_acc);
+    fence_regs(dp_acc);
+    fence_regs(dq_tile);
+    wgmma_fence();
+    gemm_abt_x3(s_acc, my_qb, my_qs, stage(sn), stage(sn) + kF32Half);
+    gemm_abt_x3(dp_acc, my_dob, my_dos, stage(sn) + 2 * kF32Half, stage(sn) + 3 * kF32Half);
+    wgmma_commit();
+    wgmma_fence();
+    gemm_pb_x3<true>(dq_tile, db, ds, stage(s) + 4 * kF32Half, stage(s) + 5 * kF32Half);  // dS K
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(s_acc);
+    fence_regs(dp_acc);
+    ds_at(s_acc, dp_acc, neg_lse, floor_r, d_r, brow, it + 1, j, t);
+    wgmma_wait<0>();
+    fence_regs(dq_tile);
+    add_regs(dq_acc, dq_tile);
+    release(ring, s);
+  }
+  {
+    const int s = (tiles - 1) % kF32Stages;
+    uint32_t db[4][4], ds[4][4];
+    split_a(db, ds, s_acc);
+    fence_regs(dq_tile);
+    wgmma_fence();
+    gemm_pb_x3<true>(dq_tile, db, ds, stage(s) + 4 * kF32Half, stage(s) + 5 * kF32Half);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq_tile);
+    add_regs(dq_acc, dq_tile);
+    release(ring, s);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + wg * kWgRows + w * 16 + g + 8 * i;
+    if (row < rows) {
+      float* dst = dq + (static_cast<size_t>(qb) * rows + row) * kHeadDim;
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        *reinterpret_cast<float2*>(dst + 8 * c + 2 * t) =
+            make_float2(dq_acc[4 * c + 2 * i], dq_acc[4 * c + 2 * i + 1]);
+    }
+  }
+}
+
+// This thread's dk/dv registers added to its float32 totals in shared
+// memory (64 slots, consecutive threads on consecutive words), then cleared.
+__device__ __forceinline__ void flush_totals(float* tot, float (&dk)[32], float (&dv)[32],
+                                             int tid) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    tot[i * 128 + tid] += dk[i];
+    tot[(32 + i) * 128 + tid] += dv[i];
+    dk[i] = dv[i] = 0.f;
+  }
+}
+
+// Backward pass 2, float32 (K-major). Grid (ceil(j / 64) * splits, heads or
+// 1, batch): a block owns 64 keys of q-batch qb (K and V, big and small,
+// loaded once: the A operands of S^T = K Q^T and dP^T = V dO^T) and walks
+// its rows [split * T / splits, (split + 1) * T / splits) of T = ceil(rows /
+// 32) tiles of 32, every head for multi-query, summing dv += P^T dO and
+// dk += dS^T Q on the tensor cores over kF32Window tiles at a time, then
+// into float32 totals in shared memory; one tile behind on the tensor
+// cores. A stage
+// holds Q, dO (big, small; 32 rows), Q^T, dO^T (big, small) and the rows'
+// lse and D. One split writes dk/dv; more write float32 slices (qb, split)
+// that kv_reduce_kernel sums in split order.
+__global__ void __launch_bounds__(256, 1)
+    attention_tf32_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap kb_map,
+                                   const __grid_constant__ CUtensorMap ks_map,
+                                   const __grid_constant__ CUtensorMap vb_map,
+                                   const __grid_constant__ CUtensorMap vs_map,
+                                   const __grid_constant__ CUtensorMap qb_map,
+                                   const __grid_constant__ CUtensorMap qs_map,
+                                   const __grid_constant__ CUtensorMap dob_map,
+                                   const __grid_constant__ CUtensorMap dos_map,
+                                   const __grid_constant__ CUtensorMap qtb_map,
+                                   const __grid_constant__ CUtensorMap qts_map,
+                                   const __grid_constant__ CUtensorMap dotb_map,
+                                   const __grid_constant__ CUtensorMap dots_map,
+                                   const __grid_constant__ CUtensorMap lse_map,
+                                   const __grid_constant__ CUtensorMap delta_map,
+                                   const float* __restrict__ bias, float* __restrict__ dk,
+                                   float* __restrict__ dv, float* __restrict__ dk_acc,
+                                   float* __restrict__ dv_acc, int rows, int rows32, int j,
+                                   int bias_div, int splits) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t kv_s = align_smem(smem_raw);  // Kb, Ks, Vb, Vs
+  const uint32_t ring_s = kv_s + 4 * kF32Tile;  // a stage: Qb Qs dOb dOs QTb QTs dOTb dOTs
+  const uint32_t lse_s = ring_s + kF32Stages * 8 * kF32Half;
+  const uint32_t delta_s = lse_s + kF32Stages * kF32Rows2 * 4;
+  const uint32_t tot_s = delta_s + kF32Stages * kF32Rows2 * 4;
+  const uint32_t kv_full = tot_s + kF32Totals;
+  const F32Ring ring = init_barriers<1, kF32Stages>(kv_full);
+  const int qb = sample_head();
+  const int key_block = blockIdx.x / splits, split = blockIdx.x % splits;
+  const int key0 = key_block * kWgRows;
+  const int row_tiles = (rows + kF32Rows2 - 1) / kF32Rows2;
+  const int t_begin = split * row_tiles / splits, t_end = (split + 1) * row_tiles / splits;
+  const int tiles = t_end - t_begin;
+  const int warp = threadIdx.x >> 5;
+  const auto stage = [&](int s) { return ring_s + s * 8 * kF32Half; };
+
+  if (warp < 4) {
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(kv_full, 4 * kF32Tile);
+      tma_rows_f32(kv_s, &kb_map, kv_full, key0, qb, 64);
+      tma_rows_f32(kv_s + kF32Tile, &ks_map, kv_full, key0, qb, 64);
+      tma_rows_f32(kv_s + 2 * kF32Tile, &vb_map, kv_full, key0, qb, 64);
+      tma_rows_f32(kv_s + 3 * kF32Tile, &vs_map, kv_full, key0, qb, 64);
+      for (int it = 0; it < tiles; ++it) {
+        const int s = it % kF32Stages, r0 = (t_begin + it) * kF32Rows2;
+        const int flat = qb * rows32 + r0;  // lse / delta: rows at qb * rows32
+        mbar_wait(ring.empty(s), F32Ring::parity(it) ^ 1);
+        mbar_expect_tx(ring.full(s), 8 * kF32Half + 2 * kF32Rows2 * 4);
+        tma_rows_f32(stage(s), &qb_map, ring.full(s), r0, qb, kF32Rows2);
+        tma_rows_f32(stage(s) + kF32Half, &qs_map, ring.full(s), r0, qb, kF32Rows2);
+        tma_rows_f32(stage(s) + 2 * kF32Half, &dob_map, ring.full(s), r0, qb, kF32Rows2);
+        tma_rows_f32(stage(s) + 3 * kF32Half, &dos_map, ring.full(s), r0, qb, kF32Rows2);
+        tma_cols_f32(stage(s) + 4 * kF32Half, &qtb_map, ring.full(s), r0, qb, 1);
+        tma_cols_f32(stage(s) + 5 * kF32Half, &qts_map, ring.full(s), r0, qb, 1);
+        tma_cols_f32(stage(s) + 6 * kF32Half, &dotb_map, ring.full(s), r0, qb, 1);
+        tma_cols_f32(stage(s) + 7 * kF32Half, &dots_map, ring.full(s), r0, qb, 1);
+        tma_load_flat(lse_s + s * kF32Rows2 * 4, &lse_map, ring.full(s), flat);
+        tma_load_flat(delta_s + s * kF32Rows2 * 4, &delta_map, ring.full(s), flat);
+      }
+    }
+    return;
+  }
+  const int w = warp & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const auto generic = [&](uint32_t addr) { return smem_raw + (addr - smem_addr(smem_raw)); };
+  const float* lse_p = reinterpret_cast<const float*>(generic(lse_s));
+  const float* delta_p = reinterpret_cast<const float*>(generic(delta_s));
+  const float* brow = bias == nullptr ? nullptr : bias + static_cast<size_t>(qb / bias_div) * j;
+  float b_key[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = key0 + w * 16 + g + 8 * i;
+    b_key[i] = (brow != nullptr && key < j) ? brow[key] : 0.f;
+  }
+
+  const int tid = threadIdx.x & 127;
+  float* tot = reinterpret_cast<float*>(generic(tot_s));
+#pragma unroll
+  for (int i = 0; i < 64; ++i) tot[i * 128 + tid] = 0.f;
+  float dk_r[32], dv_r[32], st[16], dpt[16];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk_r[i] = dv_r[i] = 0.f;
+  mbar_wait(kv_full, 0);
+  mbar_wait(ring.full(0), 0);  // tiles >= 1: f32_row_splits keeps splits <= row tiles
+  wgmma_fence();
+  gemm_abt_x3(st, kv_s, kv_s + kF32Tile, stage(0), stage(0) + kF32Half);  // S^T
+  gemm_abt_x3(dpt, kv_s + 2 * kF32Tile, kv_s + 3 * kF32Tile, stage(0) + 2 * kF32Half,
+              stage(0) + 3 * kF32Half);  // dP^T
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(st);
+  fence_regs(dpt);
+  const float neg_log2_j = -log2f(static_cast<float>(j));
+  dst_at(st, dpt, lse_p, delta_p, b_key, rows - t_begin * kF32Rows2, neg_log2_j, t);
+  uint32_t pb[4][4], ps[4][4], db[4][4], ds[4][4];
+  split_a(pb, ps, st);
+  split_a(db, ds, dpt);
+  // S^T and dP^T of the next tile, then dv and dk of this one, as three
+  // commit groups: P^T of the next tile is split once dv is done, while dk
+  // still runs
+  for (int it = 0; it + 1 < tiles; ++it) {  // the last tile peeled off
+    const int s = it % kF32Stages, sn = (it + 1) % kF32Stages;
+    mbar_wait(ring.full(sn), F32Ring::parity(it + 1));
+    fence_regs(st);
+    fence_regs(dpt);
+    fence_regs(dv_r);
+    fence_regs(dk_r);
+    wgmma_fence();
+    gemm_abt_x3(st, kv_s, kv_s + kF32Tile, stage(sn), stage(sn) + kF32Half);
+    gemm_abt_x3(dpt, kv_s + 2 * kF32Tile, kv_s + 3 * kF32Tile, stage(sn) + 2 * kF32Half,
+                stage(sn) + 3 * kF32Half);
+    wgmma_commit();
+    gemm_pb_x3<false>(dv_r, pb, ps, stage(s) + 6 * kF32Half, stage(s) + 7 * kF32Half);  // P^T dO
+    wgmma_commit();
+    gemm_pb_x3<false>(dk_r, db, ds, stage(s) + 4 * kF32Half, stage(s) + 5 * kF32Half);  // dS^T Q
+    wgmma_commit();
+    wgmma_wait<2>();
+    fence_regs(st);
+    fence_regs(dpt);
+    dst_at(st, dpt, lse_p + sn * kF32Rows2, delta_p + sn * kF32Rows2, b_key,
+           rows - (t_begin + it + 1) * kF32Rows2, neg_log2_j, t);
+    wgmma_wait<1>();
+    fence_regs(dv_r);
+    split_a(pb, ps, st);
+    wgmma_wait<0>();
+    fence_regs(dk_r);
+    split_a(db, ds, dpt);
+    if ((it + 1) % kF32Window == 0) flush_totals(tot, dk_r, dv_r, tid);
+    release(ring, s);
+  }
+  {
+    const int s = (tiles - 1) % kF32Stages;
+    fence_regs(dv_r);
+    fence_regs(dk_r);
+    wgmma_fence();
+    gemm_pb_x3<false>(dv_r, pb, ps, stage(s) + 6 * kF32Half, stage(s) + 7 * kF32Half);
+    gemm_pb_x3<false>(dk_r, db, ds, stage(s) + 4 * kF32Half, stage(s) + 5 * kF32Half);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv_r);
+    fence_regs(dk_r);
+    release(ring, s);
+  }
+  flush_totals(tot, dk_r, dv_r, tid);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    dk_r[i] = tot[i * 128 + tid];
+    dv_r[i] = tot[(32 + i) * 128 + tid];
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = key0 + w * 16 + g + 8 * i;
+    if (key >= j) continue;
+    const size_t out = splits == 1
+                           ? (static_cast<size_t>(qb) * j + key) * kHeadDim
+                           : ((static_cast<size_t>(qb) * splits + split) * j + key) * kHeadDim;
+    float* dk_dst = (splits == 1 ? dk : dk_acc) + out;
+    float* dv_dst = (splits == 1 ? dv : dv_acc) + out;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      *reinterpret_cast<float2*>(dk_dst + 8 * c + 2 * t) =
+          make_float2(dk_r[4 * c + 2 * i], dk_r[4 * c + 2 * i + 1]);
+      *reinterpret_cast<float2*>(dv_dst + 8 * c + 2 * t) =
+          make_float2(dv_r[4 * c + 2 * i], dv_r[4 * c + 2 * i + 1]);
+    }
+  }
+}
+
 // ---- host side: tensor maps and launches of the Hopper kernels -------------
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -1933,16 +2464,16 @@ bool encode_rows(CUtensorMap* map, const void* ptr, int rows, int batch) {
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// A flat float32 vector as boxes of 64 (a 2-D map of one row: the
+// A flat float32 vector as boxes of `box` (a 2-D map of one row: the
 // well-trodden form); entries past `count` read as zeros.
-bool encode_flat(CUtensorMap* map, const float* ptr, size_t count) {
+bool encode_flat(CUtensorMap* map, const float* ptr, size_t count, int box = kRingTile) {
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(count), 1};
   const cuuint64_t strides[1] = {(static_cast<cuuint64_t>(count) * 4 + 15) / 16 * 16};
-  const cuuint32_t box[2] = {kRingTile, 1};
+  const cuuint32_t boxes[2] = {static_cast<cuuint32_t>(box), 1};
   const cuuint32_t elem[2] = {1, 1};
   EncodeTiled fn = encode_tiled();
   return fn != nullptr &&
-         fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(ptr), dims, strides, box,
+         fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(ptr), dims, strides, boxes,
             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
             CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -2249,34 +2780,220 @@ int launch_mha_backward_hopper(const void* q, const void* k, const void* v, cons
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- launches of the float32 kernels ----
+// (batch, rows, inner) float32 as boxes of (box_rows rows x 32 floats) with
+// 128-byte swizzle: one swizzle atom a box; rows past `rows` read as zeros.
+bool encode_f32(CUtensorMap* map, const float* ptr, int inner, int rows, int batch, int box_rows) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(inner) * 4,
+                                 static_cast<cuuint64_t>(rows) * inner * 4};
+  const cuuint32_t box[3] = {32, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  EncodeTiled fn = encode_tiled();
+  return fn != nullptr &&
+         fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(ptr), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+size_t pad64(size_t x) { return (x + 63) / 64 * 64; }
+
+// The big and small parts of `count` floats at x (count a multiple of 4).
+void launch_split(const float* x, float* big, float* small, size_t count, cudaStream_t stream) {
+  const size_t count4 = count / 4;
+  const int blocks = static_cast<int>(std::min<size_t>((count4 + 255) / 256, 132 * 16));
+  attention_tf32_split_kernel<<<blocks, 256, 0, stream>>>(
+      reinterpret_cast<const float4*>(x), reinterpret_cast<float4*>(big),
+      reinterpret_cast<float4*>(small), count4);
+}
+
+// (batch, rows, 64) at x transposed, split, to (batch, 64, pad64(rows)) at
+// big_t and small_t; and split in its own layout to big and small unless
+// those are null.
+void launch_split_t(const float* x, float* big, float* small, float* big_t, float* small_t,
+                    int batch, int rows, cudaStream_t stream) {
+  const int rows_pad = static_cast<int>(pad64(rows));
+  const long long blocks = static_cast<long long>(batch) * (rows_pad / 32);
+  attention_tf32_split_t_kernel<<<static_cast<unsigned>(blocks), 256, 0, stream>>>(
+      x, big, small, big_t, small_t, rows, rows_pad);
+}
+
+// The q-batches of a float32 call: a sample for multi-query (its rows the
+// h * n rows across heads), a (sample, head) for multi-head (its n rows);
+// rows32 is rows rounded up to 32 (the backward's lse and D copies).
+struct F32Shape {
+  int qbatch, rows, rows32, bias_div, grid_y;
+};
+F32Shape f32_shape(int batch, int heads, int n, bool shared_kv) {
+  const int rows = shared_kv ? heads * n : n;
+  return {shared_kv ? batch : batch * heads, rows, (rows + 31) / 32 * 32, shared_kv ? 1 : heads,
+          shared_kv ? 1 : heads};
+}
+
+// Consumer warpgroups of the forward and pass 1: two (128 rows a block)
+// where their blocks still fill the card, else one.
+int f32_wgs(const F32Shape& s) {
+  const long long tiles2 = (s.rows + 2 * kWgRows - 1) / (2 * kWgRows);
+  return tiles2 * s.qbatch >= blocks_to_fill() ? 2 : 1;
+}
+
+// Row splits of float32 pass 2 (64 keys a block, 32-row tiles).
+int f32_row_splits(const F32Shape& s, int j) {
+  const int key_blocks = (j + kWgRows - 1) / kWgRows;
+  return row_splits(key_blocks * s.qbatch, (s.rows + kF32Rows2 - 1) / kF32Rows2);
+}
+
+template <int kWgs>
+int launch_f32_fwd(const CUtensorMap* maps, const float* bias, float* o, float* lse,
+                   const F32Shape& s, int batch, int j, cudaStream_t stream) {
+  static unsigned smem_set = 0;
+  const cudaError_t err =
+      allow_smem(attention_tf32_fwd_kernel<kWgs>, f32_fwd_smem(kWgs), smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((s.rows + kWgs * kWgRows - 1) / (kWgs * kWgRows), s.grid_y, batch);
+  attention_tf32_fwd_kernel<kWgs><<<grid, 128 * (kWgs + 1), f32_fwd_smem(kWgs), stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], bias, o, lse, s.rows, j, s.bias_div);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// scratch (float32): K big and small (qbatch * j * 64 each), then V^T big
+// and small (qbatch * 64 * pad64(j) each)
+int launch_forward_f32(const float* q, const float* k, const float* v, const float* bias,
+                       float* o, float* lse, float* scratch, int batch, int heads, int n, int j,
+                       bool shared_kv, cudaStream_t stream) {
+  const F32Shape s = f32_shape(batch, heads, n, shared_kv);
+  const size_t kv = static_cast<size_t>(s.qbatch) * j * kHeadDim;
+  const size_t vt = static_cast<size_t>(s.qbatch) * kHeadDim * pad64(j);
+  float* kb = scratch;
+  float* ks = kb + kv;
+  float* vtb = ks + kv;
+  float* vts = vtb + vt;
+  const cudaError_t dev_err = use_device_of(q);
+  if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
+  CUtensorMap maps[5];
+  const int jp = static_cast<int>(pad64(j));
+  if (!encode_f32(&maps[0], q, kHeadDim, s.rows, s.qbatch, 64) ||
+      !encode_f32(&maps[1], kb, kHeadDim, j, s.qbatch, 64) ||
+      !encode_f32(&maps[2], ks, kHeadDim, j, s.qbatch, 64) ||
+      !encode_f32(&maps[3], vtb, jp, kHeadDim, s.qbatch, 64) ||
+      !encode_f32(&maps[4], vts, jp, kHeadDim, s.qbatch, 64))
+    return static_cast<int>(cudaErrorInvalidValue);
+  launch_split(k, kb, ks, kv, stream);
+  launch_split_t(v, nullptr, nullptr, vtb, vts, s.qbatch, j, stream);
+  return f32_wgs(s) == 2 ? launch_f32_fwd<2>(maps, bias, o, lse, s, batch, j, stream)
+                         : launch_f32_fwd<1>(maps, bias, o, lse, s, batch, j, stream);
+}
+
+template <int kWgs>
+int launch_f32_dq(const CUtensorMap* maps, const float* bias, const float* o, const float* dout,
+                  const float* lse, float* dq, float* delta, float* lse_copy, const F32Shape& s,
+                  int batch, int j, cudaStream_t stream) {
+  static unsigned smem_set = 0;
+  const cudaError_t err =
+      allow_smem(attention_tf32_bwd_dq_kernel<kWgs>, f32_dq_smem(kWgs), smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((s.rows + kWgs * kWgRows - 1) / (kWgs * kWgRows), s.grid_y, batch);
+  attention_tf32_bwd_dq_kernel<kWgs><<<grid, 128 * (kWgs + 1), f32_dq_smem(kWgs), stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], maps[6], maps[7], maps[8], maps[9],
+      bias, o, dout, lse, dq, delta, lse_copy, s.rows, s.rows32, j, s.bias_div);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// scratch (float32), each region a multiple of 64 floats: D and a copy of
+// the lse (pad64(qbatch * rows32) each, rows32 = rows rounded up to 32);
+// where pass 2 splits the rows, dk and dv slices (splits * qbatch *
+// j * 64 each); Q, Q small, dO, dO small (qbatch * rows * 64 each); K, K
+// small, V, V small (qbatch * j * 64 each); K^T, K^T small (qbatch * 64 *
+// pad64(j) each); Q^T, Q^T small, dO^T, dO^T small (qbatch * 64 *
+// pad64(rows) each). mmt_tf32_backward_row_splits gives the splits.
+int launch_backward_f32(const float* q, const float* k, const float* v, const float* bias,
+                        const float* o, const float* dout, const float* lse, float* dq, float* dk,
+                        float* dv, float* scratch, int batch, int heads, int n, int j,
+                        bool shared_kv, cudaStream_t stream) {
+  const F32Shape s = f32_shape(batch, heads, n, shared_kv);
+  const int splits = f32_row_splits(s, j);
+  const int jp = static_cast<int>(pad64(j)), rows_p = static_cast<int>(pad64(s.rows));
+  const size_t flat32 = pad64(static_cast<size_t>(s.qbatch) * s.rows32);
+  const size_t rows64 = static_cast<size_t>(s.qbatch) * s.rows * kHeadDim;
+  const size_t kv = static_cast<size_t>(s.qbatch) * j * kHeadDim;
+  const size_t slices = splits > 1 ? splits * kv : 0;
+  const size_t kt = static_cast<size_t>(s.qbatch) * kHeadDim * jp;
+  const size_t qt = static_cast<size_t>(s.qbatch) * kHeadDim * rows_p;
+  float* delta = scratch;
+  float* lse_copy = delta + flat32;
+  float* dk_acc = lse_copy + flat32;
+  float* dv_acc = dk_acc + slices;
+  float* split = dv_acc + slices;  // Qb Qs dOb dOs, Kb Ks Vb Vs, KTb KTs, QTb QTs dOTb dOTs
+  float* part[14];
+  for (int i = 0; i < 4; ++i) part[i] = split + i * rows64;
+  for (int i = 0; i < 4; ++i) part[4 + i] = split + 4 * rows64 + i * kv;
+  for (int i = 0; i < 2; ++i) part[8 + i] = split + 4 * rows64 + 4 * kv + i * kt;
+  for (int i = 0; i < 4; ++i) part[10 + i] = split + 4 * rows64 + 4 * kv + 2 * kt + i * qt;
+  const cudaError_t dev_err = use_device_of(q);
+  if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
+  // pass 1: Qb Qs dOb dOs (64 rows), Kb Ks Vb Vs (32 keys), KTb KTs
+  // pass 2: Kb Ks Vb Vs (64 keys), Qb Qs dOb dOs (32 rows), QTb QTs dOTb dOTs, lse, D
+  CUtensorMap m1[10], m2[14];
+  bool ok = true;
+  for (int i = 0; i < 4; ++i) {
+    ok = ok && encode_f32(&m1[i], part[i], kHeadDim, s.rows, s.qbatch, 64);
+    ok = ok && encode_f32(&m1[4 + i], part[4 + i], kHeadDim, j, s.qbatch, kF32Keys1);
+    ok = ok && encode_f32(&m2[i], part[4 + i], kHeadDim, j, s.qbatch, 64);
+    ok = ok && encode_f32(&m2[4 + i], part[i], kHeadDim, s.rows, s.qbatch, kF32Rows2);
+    ok = ok && encode_f32(&m2[8 + i], part[10 + i], rows_p, kHeadDim, s.qbatch, 64);
+  }
+  for (int i = 0; i < 2; ++i) ok = ok && encode_f32(&m1[8 + i], part[8 + i], jp, kHeadDim, s.qbatch, 64);
+  ok = ok && encode_flat(&m2[12], lse_copy, flat32, kF32Rows2) &&
+       encode_flat(&m2[13], delta, flat32, kF32Rows2);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  launch_split_t(q, part[0], part[1], part[10], part[11], s.qbatch, s.rows, stream);
+  launch_split_t(dout, part[2], part[3], part[12], part[13], s.qbatch, s.rows, stream);
+  launch_split_t(k, part[4], part[5], part[8], part[9], s.qbatch, j, stream);
+  launch_split(v, part[6], part[7], kv, stream);
+  const int err = f32_wgs(s) == 2
+                      ? launch_f32_dq<2>(m1, bias, o, dout, lse, dq, delta, lse_copy, s, batch, j,
+                                         stream)
+                      : launch_f32_dq<1>(m1, bias, o, dout, lse, dq, delta, lse_copy, s, batch, j,
+                                         stream);
+  if (err != 0) return err;
+  static unsigned smem_set = 0;
+  const cudaError_t smem_err =
+      allow_smem(attention_tf32_bwd_dkdv_kernel, f32_dkdv_smem(), smem_set);
+  if (smem_err != cudaSuccess) return static_cast<int>(smem_err);
+  const dim3 grid((j + kWgRows - 1) / kWgRows * splits, s.grid_y, batch);
+  attention_tf32_bwd_dkdv_kernel<<<grid, 256, f32_dkdv_smem(), stream>>>(
+      m2[0], m2[1], m2[2], m2[3], m2[4], m2[5], m2[6], m2[7], m2[8], m2[9], m2[10], m2[11],
+      m2[12], m2[13], bias, dk, dv, dk_acc, dv_acc, s.rows, s.rows32, j, s.bias_div, splits);
+  if (splits > 1) launch_reduce<float>(dk_acc, dv_acc, dk, dv, splits, s.qbatch, j, stream);
+  return static_cast<int>(cudaGetLastError());
+}
+
 bool bad_sizes(int batch, int heads, int n, int j, int head_dim) {
   return head_dim != kHeadDim || batch <= 0 || heads <= 0 || n <= 0 || j <= 0 ||
          batch > kMaxGridYZ || heads > kMaxGridYZ;
 }
 
+// scratch: float32 only, as launch_forward_f32 lays it out (null for bf16)
 int launch_forward(const void* q, const void* k, const void* v, const float* bias, void* o,
-                   float* lse, int batch, int heads, int n, int j, int head_dim, int dtype,
-                   bool shared_kv, cudaStream_t stream) {
+                   float* lse, float* scratch, int batch, int heads, int n, int j, int head_dim,
+                   int dtype, bool shared_kv, cudaStream_t stream) {
   if (bad_sizes(batch, heads, n, j, head_dim)) return static_cast<int>(cudaErrorInvalidValue);
-  const int kv_group = shared_kv ? heads : 1;
   if (dtype == mmt::kFloat32) {
-    const dim3 grid((n + kBlockQ - 1) / kBlockQ, heads, batch);
-    attention_fwd_kernel<<<grid, kBlockQ, 0, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), bias, static_cast<float*>(o), lse, kv_group, heads, n, j);
-  } else if (dtype == mmt::kBFloat16 && shared_kv) {
-    return launch_mqa_forward_hopper(q, k, v, bias, o, lse, batch, heads, n, j, stream);
-  } else if (dtype == mmt::kBFloat16) {
-    return launch_mha_forward_hopper(q, k, v, bias, o, lse, batch, heads, n, j, stream);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_forward_f32(static_cast<const float*>(q), static_cast<const float*>(k),
+                              static_cast<const float*>(v), bias, static_cast<float*>(o), lse,
+                              scratch, batch, heads, n, j, shared_kv, stream);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == mmt::kBFloat16 && shared_kv)
+    return launch_mqa_forward_hopper(q, k, v, bias, o, lse, batch, heads, n, j, stream);
+  if (dtype == mmt::kBFloat16)
+    return launch_mha_forward_hopper(q, k, v, bias, o, lse, batch, heads, n, j, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// scratch: float32, batch*heads*n (D) + 2 * batch*heads*j*head_dim (dk/dv
-// slices); the bf16 routes lay it out as launch_mqa_backward_hopper and
-// launch_mha_backward_hopper say
+// scratch: float32, laid out as launch_mqa_backward_hopper,
+// launch_mha_backward_hopper and launch_backward_f32 say
 int launch_backward(const void* q, const void* k, const void* v, const float* bias,
                     const void* o, const void* dout, const float* lse, void* dq, void* dk,
                     void* dv, float* scratch, int batch, int heads, int n, int j, int head_dim,
@@ -2290,37 +3007,26 @@ int launch_backward(const void* q, const void* k, const void* v, const float* bi
     return launch_mha_backward_hopper(q, k, v, bias, o, dout, lse, dq, dk, dv, scratch, batch,
                                       heads, n, j, stream);
   if (dtype != mmt::kFloat32) return static_cast<int>(cudaErrorInvalidValue);
-  const int kv_group = shared_kv ? heads : 1;
-  const int bh = batch * heads;
-  float* delta = scratch;
-  float* dk_acc = scratch + static_cast<size_t>(bh) * n;
-  float* dv_acc = dk_acc + static_cast<size_t>(bh) * j * kHeadDim;
-  const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(k);
-  const float* vf = static_cast<const float*>(v);
-  const float* dof = static_cast<const float*>(dout);
-  attention_bwd_dq_kernel<<<dim3((n + kDqRows - 1) / kDqRows, heads, batch), kDqRows, 0, stream>>>(
-      qf, kf, vf, bias, static_cast<const float*>(o), dof, lse, static_cast<float*>(dq), delta,
-      kv_group, heads, n, j);
-  attention_bwd_dkdv_kernel<<<dim3((j + kKvKeys - 1) / kKvKeys, heads, batch), kKvKeys, 0, stream>>>(
-      qf, kf, vf, bias, dof, lse, delta, dk_acc, dv_acc, kv_group, heads, n, j);
-  launch_reduce<float>(dk_acc, dv_acc, dk, dv, kv_group, bh / kv_group, j, stream);
-  return static_cast<int>(cudaGetLastError());
+  return launch_backward_f32(static_cast<const float*>(q), static_cast<const float*>(k),
+                             static_cast<const float*>(v), bias, static_cast<const float*>(o),
+                             static_cast<const float*>(dout), lse, static_cast<float*>(dq),
+                             static_cast<float*>(dk), static_cast<float*>(dv), scratch, batch,
+                             heads, n, j, shared_kv, stream);
 }
 
 }  // namespace
 
 extern "C" int mmt_mqa_forward(const void* q, const void* k, const void* v, const float* bias,
-                               void* o, float* lse, int batch, int heads, int n, int j,
-                               int head_dim, int dtype, void* stream) {
-  return launch_forward(q, k, v, bias, o, lse, batch, heads, n, j, head_dim, dtype, true,
+                               void* o, float* lse, float* scratch, int batch, int heads, int n,
+                               int j, int head_dim, int dtype, void* stream) {
+  return launch_forward(q, k, v, bias, o, lse, scratch, batch, heads, n, j, head_dim, dtype, true,
                         static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int mmt_mha_forward(const void* q, const void* k, const void* v, const float* bias,
-                               void* o, float* lse, int batch, int heads, int n, int j,
-                               int head_dim, int dtype, void* stream) {
-  return launch_forward(q, k, v, bias, o, lse, batch, heads, n, j, head_dim, dtype, false,
+                               void* o, float* lse, float* scratch, int batch, int heads, int n,
+                               int j, int head_dim, int dtype, void* stream) {
+  return launch_forward(q, k, v, bias, o, lse, scratch, batch, heads, n, j, head_dim, dtype, false,
                         static_cast<cudaStream_t>(stream));
 }
 
@@ -2344,6 +3050,12 @@ extern "C" int mmt_mha_backward(const void* q, const void* k, const void* v, con
 // scratch holds float32 dk/dv slices only where this is above 1).
 extern "C" int mmt_mha_backward_row_splits(int batch, int heads, int n, int j) {
   return mha_row_splits(batch, heads, n, j);
+}
+
+// Row splits the float32 backward's dk/dv pass takes on the current device
+// (its scratch holds float32 dk/dv slices only where this is above 1).
+extern "C" int mmt_tf32_backward_row_splits(int batch, int heads, int n, int j, int shared_kv) {
+  return f32_row_splits(f32_shape(batch, heads, n, shared_kv != 0), j);
 }
 
 extern "C" const char* mmt_error_string(int code) {

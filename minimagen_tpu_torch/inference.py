@@ -106,7 +106,9 @@ def main(argv: Optional[Sequence[str]] = None):
                              device=args.DEVICE)
     if mesh is None or mesh.is_leader:
         print(json.dumps({"save_directory": os.path.abspath(save_directory),
-                          "images": len(pixels), "launches": dict(kernels.LAUNCHES)}), flush=True)
+                          "images": len(pixels), "launches": dict(kernels.LAUNCHES),
+                          "launches_by_dtype": {k: dict(v) for k, v in
+                                                kernels.LAUNCHES_BY_DTYPE.items()}}), flush=True)
     return pixels
 
 

@@ -113,8 +113,9 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 def _check(kind: str, q, k, v, bias):
-    """Shapes, devices and types a kernel takes; returns the bias as a
-    contiguous float32 (b, j) row per sample, or None."""
+    """Shapes, devices, types and (for the tensor maps) 16-byte alignment a
+    kernel takes; returns the bias as a contiguous float32 (b, j) row per
+    sample, or None."""
     b, h, _, d = q.shape
     j = k.shape[-2]
     kv_shape = (b, j, d) if kind == "mqa" else (b, h, j, d)
@@ -124,6 +125,8 @@ def _check(kind: str, q, k, v, bias):
     if d != 64:
         raise ValueError(f"{kind}: the kernel takes head_dim 64, got {d}")
     kernels.require_cuda(kind, q, k, v)
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"{kind}: q, k and v must start on a 16-byte boundary")
     if bias is None:
         return None
     if tuple(bias.shape) not in ((b, 1, 1, j), (b, j)) or bias.dtype != torch.float32 \
@@ -133,16 +136,40 @@ def _check(kind: str, q, k, v, bias):
     return bias.reshape(b, j).contiguous()
 
 
+def _pad64(x: int) -> int:
+    return -(-x // 64) * 64
+
+
+def _qbatch_rows(kind: str, b: int, h: int, n: int):
+    """The float32 kernels' q-batches and their rows: multi-query a sample
+    and its h * n rows across heads, multi-head a (sample, head) and its n."""
+    return (b, h * n) if kind == "mqa" else (b * h, n)
+
+
+def forward_scratch_floats(kind: str, dtype: torch.dtype, b: int, h: int, n: int, j: int,
+                           d: int = 64) -> int:
+    """Float32 scratch of the forward kernel: none in bf16; in float32 K in
+    big and small tf32 parts (the layout of k) and V transposed, its keys
+    padded to a multiple of 64, in both parts (csrc launch_forward_f32)."""
+    if dtype == torch.bfloat16:
+        return 0
+    qbatch, _ = _qbatch_rows(kind, b, h, n)
+    return 2 * qbatch * j * d + 2 * qbatch * d * _pad64(j)
+
+
 def attention_forward_kernel(kind: str, q, k, v, bias=None, with_lse: bool = False):
     """Launch the forward kernel ("mqa" or "mha"); returns (out, lse), lse
     the float32 (b, h, n) log-sum-exp of each row's logits when asked for."""
     bias = _check(kind, q, k, v, bias)
     b, h, n, d = q.shape
+    j = k.shape[-2]
     out = torch.empty_like(q)
     lse = torch.empty(b, h, n, device=q.device, dtype=torch.float32) if with_lse else None
+    floats = forward_scratch_floats(kind, q.dtype, b, h, n, j, d)
+    scratch = torch.empty(floats, device=q.device, dtype=torch.float32) if floats else None
     kernels.launch(f"{kind}_forward", q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
-                   out.data_ptr(), _ptr(lse), b, h, n, k.shape[-2], d,
-                   kernels.DTYPE_CODES[q.dtype], kernels.current_stream(q))
+                   out.data_ptr(), _ptr(lse), _ptr(scratch), b, h, n, j, d,
+                   kernels.DTYPE_CODES[q.dtype], kernels.current_stream(q), dtype=q.dtype)
     return out, lse
 
 
@@ -158,13 +185,23 @@ def backward_scratch_floats(kind: str, dtype: torch.dtype, b: int, h: int, n: in
     `splits` slices per (sample, head) only where its dk/dv pass splits the
     rows (`splits` > 1, from :func:`mha_row_splits`). D is rounded up to 4
     floats there, so the slices stay 16-byte aligned. The float32 kernels
-    keep one slice per (sample, head)."""
+    sum dk/dv in registers too (over the heads for multi-query) and keep
+    `splits` slices per q-batch (:func:`tf32_row_splits`) only where
+    `splits` > 1; D and a copy of the lse come first (each q-batch's rows
+    rounded up to 32, the whole to 64 floats), and the inputs follow in big
+    and small tf32 parts: q and dO, k and v as laid out, then K^T, Q^T and
+    dO^T with their keys or rows padded to a multiple of 64 (csrc
+    launch_backward_f32)."""
     if dtype == torch.bfloat16:
         delta = -(-b * h * n // 4) * 4
         if kind == "mqa":
             return delta + 2 * MAX_ROW_SPLITS * b * j * d
         return delta + (2 * splits * b * h * j * d if splits > 1 else 0)
-    return b * h * n + 2 * b * h * j * d
+    qbatch, rows = _qbatch_rows(kind, b, h, n)
+    slices = 2 * splits * qbatch * j * d if splits > 1 else 0
+    split = 4 * qbatch * rows * d + 4 * qbatch * j * d + 2 * qbatch * d * _pad64(j) \
+        + 4 * qbatch * d * _pad64(rows)
+    return 2 * _pad64(qbatch * -(-rows // 32) * 32) + slices + split
 
 
 def mha_row_splits(q: torch.Tensor, j: int) -> int:
@@ -173,6 +210,14 @@ def mha_row_splits(q: torch.Tensor, j: int) -> int:
     b, h, n, _ = q.shape
     with torch.cuda.device(q.device):
         return kernels.library().mmt_mha_backward_row_splits(b, h, n, j)
+
+
+def tf32_row_splits(kind: str, q: torch.Tensor, j: int) -> int:
+    """Row splits the float32 backward's dk/dv pass takes for q (b, h, n,
+    64) and j keys on q's card (at most MAX_ROW_SPLITS)."""
+    b, h, n, _ = q.shape
+    with torch.cuda.device(q.device):
+        return kernels.library().mmt_tf32_backward_row_splits(b, h, n, j, int(kind == "mqa"))
 
 
 def attention_backward_kernel(kind: str, q, k, v, bias, out, g, lse):
@@ -185,13 +230,16 @@ def attention_backward_kernel(kind: str, q, k, v, bias, out, g, lse):
             or lse is None or tuple(lse.shape) != (b, h, n):
         raise ValueError(f"{kind}: output, cotangent or lse do not match q {tuple(q.shape)}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    splits = mha_row_splits(q, j) if kind == "mha" and q.dtype == torch.bfloat16 else 1
+    if q.dtype == torch.float32:
+        splits = tf32_row_splits(kind, q, j)
+    else:
+        splits = mha_row_splits(q, j) if kind == "mha" else 1
     scratch = torch.empty(backward_scratch_floats(kind, q.dtype, b, h, n, j, splits=splits),
                           device=q.device, dtype=torch.float32)
     kernels.launch(f"{kind}_backward", q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(bias),
                    out.data_ptr(), g.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                    dv.data_ptr(), scratch.data_ptr(), b, h, n, j, d,
-                   kernels.DTYPE_CODES[q.dtype], kernels.current_stream(q))
+                   kernels.DTYPE_CODES[q.dtype], kernels.current_stream(q), dtype=q.dtype)
     return dq, dk, dv
 
 

@@ -241,7 +241,7 @@ def group_norm_forward_kernel(x, gamma, beta, scale, shift, *, groups: int, eps:
         "group_norm_forward", x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), _ptr(scale),
         _ptr(shift), ss_stride, y.data_ptr(), at, at + 4 * plane, at + 8 * plane, n_scratch, b,
         h * w, c, groups, float(eps), int(silu), kernels.DTYPE_CODES[x.dtype],
-        ctypes.addressof(p), kernels.current_stream(x))
+        ctypes.addressof(p), kernels.current_stream(x), dtype=x.dtype)
     return y, floats[0], floats[1]
 
 
@@ -275,7 +275,8 @@ def group_norm_backward_kernel(x, gamma, beta, scale, shift, mean, rstd, g, *, g
         rstd.contiguous().data_ptr(), dx.data_ptr(), at, at + 4 * c,
         None if scale is None else at + 8 * c, None if scale is None else at + 4 * (2 + b) * c,
         at + 4 * (2 + 2 * ss_rows) * c, n_scratch, _ticket(device, stream).data_ptr(), b, h * w,
-        c, groups, int(silu), kernels.DTYPE_CODES[x.dtype], ctypes.addressof(p), stream)
+        c, groups, int(silu), kernels.DTYPE_CODES[x.dtype], ctypes.addressof(p), stream,
+        dtype=x.dtype)
     if scale is None:
         return dx, rows[0], rows[1], None, None
     return dx, rows[0], rows[1], rows[2:2 + b], rows[2 + b:2 + 2 * b]

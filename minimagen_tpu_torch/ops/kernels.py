@@ -11,7 +11,8 @@ build is kept in ``build.log`` beside the library.
 
 Every C entry point launches on PyTorch's current stream and returns
 ``cudaGetLastError()``; :func:`launch` raises if that is not 0 and counts the
-launch in :data:`LAUNCHES`, so a run can show which kernels its main path went
+launch in :data:`LAUNCHES` (and, by the inputs' type, in
+:data:`LAUNCHES_BY_DTYPE`), so a run can show which kernels its main path went
 through.
 """
 from __future__ import annotations
@@ -36,7 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signatures of the entry points: name -> argtypes (all return int status)
-_ATTN_FWD = [_P] * 6 + [_I] * 6 + [_P]   # q k v bias o lse, b h n j d dtype, stream
+_ATTN_FWD = [_P] * 7 + [_I] * 6 + [_P]   # q k v bias o lse scratch, b h n j d dtype, stream
 _ATTN_BWD = [_P] * 11 + [_I] * 6 + [_P]  # q k v bias o do lse dq dk dv scratch, ...
 SIGNATURES = {
     "mmt_mqa_forward": _ATTN_FWD,
@@ -55,7 +56,8 @@ SIGNATURES = {
 }
 # helpers that launch nothing: name -> argtypes (return int)
 QUERIES = {"mmt_group_norm_plan": [_I] * 8 + [_P],  # backward b hw c groups dtype vec form, out
-           "mmt_mha_backward_row_splits": [_I, _I, _I, _I]}
+           "mmt_mha_backward_row_splits": [_I, _I, _I, _I],
+           "mmt_tf32_backward_row_splits": [_I] * 5}  # b h n j shared_kv
 
 # kernel name -> launches since the last reset_launch_counts()
 LAUNCHES: Dict[str, int] = {name: 0 for name in (
@@ -63,14 +65,18 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in (
     "mqa_backward", "mha_backward", "group_norm_backward", "depth_to_space_bias")}
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the same counts split by the inputs' type: "float32" / "bfloat16" -> kernel -> launches
+LAUNCHES_BY_DTYPE: Dict[str, Dict[str, int]] = {
+    str(dtype).split(".")[-1]: dict.fromkeys(LAUNCHES, 0) for dtype in DTYPE_CODES}
 
 _lock = threading.Lock()
 _library = None
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, *LAUNCHES_BY_DTYPE.values()):
+        for name in counts:
+            counts[name] = 0
 
 
 def sources() -> List[str]:
@@ -147,15 +153,16 @@ def current_stream(t: torch.Tensor) -> int:
     return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
-def launch(kernel: str, *args) -> None:
-    """Call entry point ``mmt_<kernel>``; raise on a non-zero CUDA status,
-    else count the launch."""
+def launch(kernel: str, *args, dtype: torch.dtype) -> None:
+    """Call entry point ``mmt_<kernel>`` on inputs of `dtype`; raise on a
+    non-zero CUDA status, else count the launch."""
     lib = library()
     status = getattr(lib, f"mmt_{kernel}")(*args)
     if status != 0:
         msg = lib.mmt_error_string(status).decode()
         raise RuntimeError(f"CUDA kernel {kernel} failed to launch: {msg} ({status})")
     LAUNCHES[kernel] += 1
+    LAUNCHES_BY_DTYPE[str(dtype).split(".")[-1]][kernel] += 1
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:

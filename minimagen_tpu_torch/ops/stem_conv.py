@@ -179,7 +179,7 @@ def depth_to_space_bias_kernel(y2: torch.Tensor, bias: torch.Tensor, f: int) -> 
     kernels.require_cuda("depth_to_space_bias", y2, bias)
     out = torch.empty(b, f * h, f * w, c, dtype=y2.dtype, device=y2.device)
     kernels.launch("depth_to_space_bias", y2.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, w,
-                   f, c, kernels.DTYPE_CODES[y2.dtype], kernels.current_stream(y2))
+                   f, c, kernels.DTYPE_CODES[y2.dtype], kernels.current_stream(y2), dtype=y2.dtype)
     return out
 
 

@@ -163,7 +163,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                              training_dir, optimizer, timeout=30, mesh=mesh)
     if writer:
         print(json.dumps({"training_directory": os.path.abspath(dir_path), "summary": summary,
-                          "launches": dict(kernels.LAUNCHES)}), flush=True)
+                          "launches": dict(kernels.LAUNCHES),
+                          "launches_by_dtype": {k: dict(v) for k, v in
+                                                kernels.LAUNCHES_BY_DTYPE.items()}}), flush=True)
     return summary
 
 

@@ -100,11 +100,27 @@ def test_library_name_tracks_source_hash(tmp_path, monkeypatch):
 def test_backward_scratch_is_sized_by_kind(b, h, n, j):
     """The bf16 backwards keep D (rounded up to 4 floats): multi-query then
     at most 4 float32 dk/dv slices per sample, multi-head none unless its
-    dk/dv pass splits the rows, then one slice per split and (sample, head);
-    the float32 kernels one slice per (sample, head)."""
-    per_head = b * h * n + 2 * b * h * j * 64
+    dk/dv pass splits the rows, then one slice per split and (sample, head).
+    The float32 (3xTF32) kernels keep D and a copy of the lse (each
+    q-batch's rows rounded up to 32 floats, the whole to 64), one dk/dv
+    slice per split and q-batch (a sample for multi-query, a (sample, head)
+    for multi-head) only where the rows split, then the inputs in big and
+    small tf32 parts: q and dO, k and v, then K^T, Q^T and dO^T padded to
+    64 keys or rows; their forward keeps K and V^T in both parts."""
+    pad = lambda x: -(-x // 64) * 64  # noqa: E731
     for kind in ("mqa", "mha"):
-        assert tflash.backward_scratch_floats(kind, torch.float32, b, h, n, j) == per_head
+        qbatch, rows = (b, h * n) if kind == "mqa" else (b * h, n)
+        lse_d = 2 * pad(qbatch * -(-rows // 32) * 32)
+        split = 4 * qbatch * rows * 64 + 4 * qbatch * j * 64 + 2 * qbatch * 64 * pad(j) \
+            + 4 * qbatch * 64 * pad(rows)
+        assert tflash.backward_scratch_floats(kind, torch.float32, b, h, n, j) \
+            == lse_d + split
+        for splits in (2, tflash.MAX_ROW_SPLITS):
+            got = tflash.backward_scratch_floats(kind, torch.float32, b, h, n, j, splits=splits)
+            assert got == lse_d + 2 * splits * qbatch * j * 64 + split
+        assert tflash.forward_scratch_floats(kind, torch.float32, b, h, n, j) \
+            == 2 * qbatch * j * 64 + 2 * qbatch * 64 * pad(j)
+        assert tflash.forward_scratch_floats(kind, torch.bfloat16, b, h, n, j) == 0
     delta = -(-b * h * n // 4) * 4
     assert delta % 4 == 0 and delta >= b * h * n
     got = tflash.backward_scratch_floats("mqa", torch.bfloat16, b, h, n, j)
@@ -301,6 +317,55 @@ def test_attention_kernels_on_fully_dropped_rows_on_card(cuda, dtype, kind, n, j
     bias = _mask_bias_np(3, j)
     bias[1] = tflash.NEG_INF
     _check_forward_backward(kind, dtype, q, k, v, g, _t(bias).to(cuda))
+
+
+# float32 (3xTF32) cases: the path's shapes at batch 16 (self-attention
+# n + 1 keys at n = 1024, 256, 64; cross-attention 259/261 keys with the
+# mask bias), and the edges: one row and key tile far from full (3, 1, 5, 7),
+# a ragged row tile across heads and a ragged key tile (2, 8, 100, 101)
+F32_PATH_CASES = [("mqa", 16, 8, 1024, 1025, False), ("mqa", 16, 8, 256, 257, False),
+                  ("mqa", 16, 8, 64, 65, False), ("mha", 16, 8, 1024, 259, True),
+                  ("mha", 16, 8, 1024, 261, False), ("mha", 16, 8, 256, 259, True),
+                  ("mha", 16, 8, 64, 261, True), ("mqa", 3, 1, 5, 7, False),
+                  ("mha", 3, 1, 5, 7, True), ("mqa", 2, 8, 100, 101, True),
+                  ("mha", 2, 8, 100, 101, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,b,h,n,j,with_bias", F32_PATH_CASES)
+def test_float32_attention_at_path_and_edge_shapes_on_card(cuda, kind, b, h, n, j, with_bias):
+    """The 3xTF32 forward and backward against the plain float32 versions
+    within 2e-5 relative, at the main path's shapes and the edge shapes."""
+    q, k, v = (_t(a).to(cuda) for a in _qkv(b, h, n, j, 64, kind == "mha"))
+    g = _t(np.random.default_rng(6).normal(size=q.shape).astype(np.float32)).to(cuda)
+    bias = _t(_mask_bias_np(b, j)).to(cuda) if with_bias else None
+    _check_forward_backward(kind, torch.float32, q, k, v, g, bias)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["mqa", "mha"])
+def test_float32_attention_is_deterministic_on_card(cuda, kind):
+    """The float32 forward and backward sum in a fixed order (dk/dv over the
+    heads in registers, row-split slices in split order): two runs give the
+    same bits."""
+    q, k, v, g, bias = _attention_case(cuda, torch.float32, kind, 16, 1024,
+                                       1025 if kind == "mqa" else 259, kind == "mha")
+    first = tflash.attention_forward_kernel(kind, q, k, v, bias, with_lse=True)
+    second = tflash.attention_forward_kernel(kind, q, k, v, bias, with_lse=True)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    out, lse = first
+    grads = [tflash.attention_backward_kernel(kind, q, k, v, bias, out, g, lse) for _ in range(2)]
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["mqa", "mha"])
+def test_float32_attention_above_65535_sample_heads_on_card(cuda, kind):
+    """batch * heads = 8193 * 8 = 65544 in float32: forward and backward
+    kernels against the plain versions at n 16, j 17."""
+    q, k, v, g, _ = _attention_case(cuda, torch.float32, kind, 8193, 16, 17, False)
+    _check_forward_backward(kind, torch.float32, q, k, v, g, None)
 
 
 @pytest.mark.cuda
