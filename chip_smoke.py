@@ -5,7 +5,8 @@
 
 Phases, one line each with elapsed seconds; any failure exits non-zero:
 
-1. build: compile csrc/*.cu with one nvcc call (ops/kernels.py).
+1. build: compile csrc/*.cu, one nvcc per source in parallel, then link
+   (ops/kernels.py).
 2. load: ``load_lite(device="cuda")`` from assets/lite_ckpt and assets/t5_tiny.
 3. kernels: every kernel against its plain PyTorch version at every shape the
    main path gives it (recorded from one guided forward of each U-Net), in
@@ -45,11 +46,11 @@ Phases, one line each with elapsed seconds; any failure exits non-zero:
 7d. cache bit identity: cache_interval 1 against None (and None against
    None) on the card, equal bits.
 7e. a measurement, not a check: host ms per guided DDIM step of each stage
-   with cache_interval None and 2, in turns, three times over, with the
+   with cache_interval None and 2, in turns, twice over, with the
    spread, beside the caching cost model's decision (repeated for the
    default cascade in 17b, after which each stage's verdict and the
    constants the runs imply are printed).
-8. a measurement, not a check: the host time of 5 guided DDIM steps per
+8. a measurement, not a check: the host time of 3 guided DDIM steps per
    stage, and a torch.profiler trace of them for the device's busy time and
    its largest kernels, and the device ms per step of each kernel family
    (the wgmma multi-query kernels, the wgmma multi-head kernels, the
@@ -64,6 +65,10 @@ Phases, one line each with elapsed seconds; any failure exits non-zero:
 10a. every attention kernel, forward and backward, bfloat16 and float32, on
    a batch whose sample 1 drops every key: uniform rows, P = 1/j, against
    the plain versions at the same limits.
+10b. the bf16 attention kernels, forward and backward, multi-query and
+   multi-head, with and without a mask bias, at (3, 1, 5, 7), (2, 8, 6, 7),
+   (3, 1, 6, 9) and (2, 1, 7, 261): row counts per q-batch no multiple of
+   4, against the plain versions at the bf16 limit.
 11. reference train step: the committed weights as float32 master
    parameters, one step at batch 2 with injected draws, on the card
    (kernels) and on the CPU (plain versions), TF32 off: losses within 1e-4
@@ -78,7 +83,7 @@ Phases, one line each with elapsed seconds; any failure exits non-zero:
    1.5x the committed run's (base 0.25, SR 1.10) and below its own mean
    over steps 1-200, every loss finite, every backward kernel launched.
 13. a measurement, not a check: host ms per training step and a
-   torch.profiler trace of 5 steps, with the kernel families as in
+   torch.profiler trace of 2 steps, with the kernel families as in
    phase 8.
 13a. the harness: ``python -m minimagen_tpu_torch.train`` on the lite
    cascade at full width (a written parameters/ directory, batch 16, 512
@@ -128,7 +133,8 @@ Phases, one line each with elapsed seconds; any failure exits non-zero:
    cascade too); a sharded dump written on {data 2} (ZeRO-1, after a step)
    restored on {model 2}, every tensor equal bits; ``sample(mesh=)`` of the
    cascade truncated at 0.2 (8 captions): bf16 colours at most 0.06
-   (DDIM-50), float32 within 1e-5 of ``sample()`` (DDIM-10); the default
+   (DDIM on the lambda grid, 10 steps), float32 within 1e-5 of ``sample()``
+   (DDIM-10); the default
    cascade at full
    width, each stage's float32 guided forward (one caption) with its
    kernels split against the same seeded weights whole, within 1e-5. The
@@ -142,6 +148,16 @@ Phases, one line each with elapsed seconds; any failure exits non-zero:
    guided base steps written and read back through ``utils/profiling``
    (its kernels' sum against the profile's, within 5%), and every trace
    the profile phases wrote (``build/traces/``) summarized by family.
+13g. Orbax: the JAX package's Orbax train state ``tests/data/orbax_tiny``
+   (a dim-16 cascade, bf16 first moment, EMA, step 3) read without Orbax
+   (the reader's MB/s on its zstd chunks, and on the Huffman-coded float32
+   sample ``tests/data/zstd/``) and restored into
+   ``MinimagenTrain`` on the card, which trains 2 bf16 steps (finite
+   losses, step 3 -> 5, the attention and GroupNorm kernels launched);
+   then the lite train state (0.671 GB: float32 masters, bf16 first
+   moment, EMA) through ``save_train_state_orbax`` and
+   ``load_train_state_orbax``, every tensor equal bits, the writer's and
+   the reader's MB/s.
 
 The reference's default cascade (``generate.default_imagen``: Base at 64px,
 Super at 128px, t5_base through the hash encoder, 2.33B parameters, fresh
@@ -162,6 +178,12 @@ objects are freed:
    (karras grid) cascades at 16/32px with cache_interval 2, guidance_rescale
    0.7 and the super-res stage truncated at 0.2, draws injected from numpy,
    each stage within 1e-3 relative L2.
+16a. reference train step of the same: one ``make_train_step`` (both
+   stage losses, clip-50 Adam, the EMA) at batch 2 with injected draws,
+   float32 on the card against the CPU copy (~47 GB of state there): both
+   losses, the updated parameters and the EMA within 1e-3 relative L2, the
+   gradients within 1e-3, and the update p - p0 of every 25th parameter
+   tensor within 1e-2 (a step that updates nothing gives 1).
 17. serve, with the launch counts reset just before it: 4 eval captions,
    cond_scale 3.0, DDIM-50 through both stages; images finite in [0, 1],
    every forward kernel launched, peak memory.
@@ -189,6 +211,7 @@ package is missing.
 """
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -204,6 +227,9 @@ REFERENCE_LIMIT = 1e-3  # relative L2, float32 on the card vs float32 on the CPU
 # and the EMA against its own definition, in float32 ulps (one rounding of
 # ema0 * d, one of the sum: 1.5 ulps at most)
 TRAIN_LOSS_LIMIT, TRAIN_GRAD_LIMIT, TRAIN_PARAM_LIMIT = 1e-4, 1e-3, 1e-4
+# relative L2 of a step's update p - p0, card vs CPU: a step that updates
+# nothing gives 1, one of the wrong sign 2
+UPDATE_LIMIT = 1e-2
 EMA_ULP_LIMIT = 2.0
 EMA_DECAY = 0.9995
 LEARN_STEPS = 400
@@ -231,8 +257,9 @@ CACHE_PSNR_LIMIT = 30.0
 REFERENCE_SOLVERS = (("dpmpp", "lambda", (3, 6)), ("unipc", "karras", (3, 10)))
 REFERENCE_SOLVER_KW = dict(cache_interval=2, guidance_rescale=0.7, sr_start_noise_levels=0.2)
 # guided DDIM steps per timed run, runs per setting, and repetitions of the
-# whole measurement (the host's pace shifts between blocks of runs)
-CACHE_TIMING_STEPS, CACHE_TIMING_RUNS, CACHE_TIMING_REPS = 4, 20, 3
+# whole measurement (the host's pace shifts between blocks of runs; 10 runs
+# and two repetitions, for the run's time budget)
+CACHE_TIMING_STEPS, CACHE_TIMING_RUNS, CACHE_TIMING_REPS = 4, 10, 2
 # quality rows of metrics.json checked on the committed weights: truncated
 # super-resolution PSNR (sr/start0.2 must beat its bicubic baseline;
 # sr/start0.4's committed row, 24.44 dB, is itself below its 27.08 dB
@@ -687,6 +714,7 @@ def check_depth_to_space(shape, dtype, gen):
     row = dict(kernel="depth_to_space_bias", shape=list(shape), dtype=name,
                max_abs_err=err if torch.equal(out, ref) or err > 0 else float("nan"), limit=0.0)
     row["ms"] = median_ms(lambda: sc.depth_to_space_bias(y2, bias, f))
+    row["device_ms"] = device_ms(lambda: sc.depth_to_space_bias(y2, bias, f))
     row["plain_ms"] = median_ms(lambda: sc.depth_to_space_bias_plain(y2, bias, f))
     row["library_ms"] = None  # pixel_shuffle orders channels (c, py, px) and adds no bias
     # read y2 and the bias, write the output; one float32 add per element
@@ -1079,7 +1107,7 @@ def log_cache_fit(rows, imagen):
     return fit
 
 
-def profile_steps(imagen, captions, steps=5):
+def profile_steps(imagen, captions, steps=3):
     """Time `steps` guided DDIM steps of each stage: host time per step
     without the profiler, then device busy time per step (sum of kernel
     times in a torch.profiler trace of the same steps), the kernels that
@@ -1449,7 +1477,7 @@ def learn():
                                ms_per_step=run.host_ms_per_step)
 
 
-def profile_train(run, steps=5):
+def profile_train(run, steps=2):
     """Host ms per training step (synchronized) and a torch.profiler trace
     of `steps` steps: device busy ms per step and the largest items."""
     n_batches = run.batches["image"].shape[0]
@@ -1645,6 +1673,89 @@ def default_reference(captions):
             raise PhaseError(f"default cascade stage {stage} disagrees with the CPU reference")
     results.update(default_solver_reference(models, embeds, masks))
     return results
+
+
+def default_train_reference():
+    """One train step of the default cascade (make_train_step: both stage
+    losses, one backward, clip-50 Adam, the EMA) at Base 16px and Super
+    32px, batch 2, full width and depth, float32 with TF32 off, injected
+    draws: on the card (kernels) against a CPU copy of the same weights
+    (plain versions). The two stage losses, the updated parameters and the
+    EMA within REFERENCE_LIMIT relative L2, the gradients within
+    TRAIN_GRAD_LIMIT, and the update p - p0 of every 25th parameter tensor
+    within UPDATE_LIMIT (one step moves a parameter by ~1e-4 relative, so
+    the parameters alone would pass a step that updated nothing): each
+    summed over tensors, one at a time, as the CPU side holds ~47 GB of
+    state. The card's gradients stay on the card until compared."""
+    import gc
+
+    import torch
+    from minimagen_tpu_torch.generate import default_imagen
+    from minimagen_tpu_torch.training import create_train_state, make_optimizer, make_train_step
+
+    batch = {k: v.cpu() for k, v in default_train_batch().items()}
+    gen = torch.Generator().manual_seed(SEED)
+    draws = []
+    for stage, size in enumerate((16, 32)):
+        d = dict(times=torch.tensor([120, 730]),
+                 noise=torch.randn(2, size, size, 3, generator=gen),
+                 keep_mask=torch.tensor([True, False]))
+        if stage:
+            d.update(lowres_aug_times=torch.tensor([310, 310]),
+                     lowres_noise=torch.randn(2, size, size, 3, generator=gen))
+        draws.append(d)
+    card = resized_copy(default_imagen(device=DEVICE, seed=SEED, dtype=torch.float32), DEVICE,
+                        (16, 32))
+    host = resized_copy(cpu_copy(card), "cpu", (16, 32))
+    # every 25th parameter tensor before the step, for the update p - p0
+    watched = {k: p.detach().clone() for k, p in enumerate(host.unets.parameters()) if k % 25 == 0}
+    states, losses = {}, {}
+    for side, dev, imagen in (("card", DEVICE, card), ("cpu", "cpu", host)):
+        t0 = time.perf_counter()
+        opt = make_optimizer(1e-4)
+        state = create_train_state(imagen, opt, ema=True)
+        step = make_train_step(imagen, opt, ema_decay=EMA_DECAY)
+        to = lambda dd: {k: v.to(dev) for k, v in dd.items()}  # noqa: E731
+        state, step_losses = step(state, to(batch), draws=[to(d) for d in draws])
+        losses[side], states[side] = step_losses.cpu(), state
+        sync()
+        log(f"  {side}: one step in {time.perf_counter() - t0:.1f} s, losses "
+            f"{step_losses.cpu().tolist()}")
+        gc.collect()
+
+    def rel(xs, ys):
+        num = den = 0.0
+        for x, y in zip(xs, ys):
+            y = y.detach()
+            num += float(torch.linalg.vector_norm(x.detach().to("cpu") - y)) ** 2
+            den += float(torch.linalg.vector_norm(y)) ** 2
+        return (num / den) ** 0.5
+
+    lc, lr_ = losses["card"], losses["cpu"]
+    checks = [(f"stage {i} loss", abs(float(lc[i] - lr_[i])) / abs(float(lr_[i])),
+               REFERENCE_LIMIT) for i in range(2)]
+    card_s, cpu_s = states["card"], states["cpu"]
+    missing = sum(p.grad is None for p in [*card_s.params, *cpu_s.params])
+    checks += [("gradients", rel([p.grad for p in card_s.params], [p.grad for p in cpu_s.params])
+                if not missing else float("inf"), TRAIN_GRAD_LIMIT)]
+    for p in [*card_s.params, *cpu_s.params]:
+        p.grad = None
+    updates = [[s.params[k].detach().to("cpu") - p0 for k, p0 in watched.items()]
+               for s in (card_s, cpu_s)]
+    checks += [(f"update p - p0 of {len(watched)} tensors", rel(*updates), UPDATE_LIMIT),
+               ("parameters", rel(card_s.params, cpu_s.params), REFERENCE_LIMIT),
+               ("EMA", rel(card_s.ema_params, cpu_s.ema_params), REFERENCE_LIMIT)]
+    finite = bool(torch.isfinite(lc).all())
+    del updates, watched
+    for name, val, lim in checks:
+        log(f"  {name}: relative L2 card f32 vs cpu f32 = {val:.3e} (limit {lim}) "
+            f"{'ok' if val <= lim else 'FAIL'}")
+    del states, card_s, cpu_s, card, host
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not finite or any(not val <= lim for _, val, lim in checks):
+        raise PhaseError("the default cascade's train step disagrees with the CPU reference")
+    return {name: val for name, val, _ in checks}
 
 
 def resized_copy(imagen, device, sizes):
@@ -1982,6 +2093,52 @@ def check_dropped_rows():
                 f"max_abs_err {err:.3e} (limit {lim:.3e}) {'ok' if err <= lim else 'FAIL'}")
     if any(r["max_abs_err"] > r["limit"] for r in rows):
         raise PhaseError("an attention kernel disagrees with the plain version on dropped rows")
+    return rows
+
+
+# (b, h, n, j) whose rows per q-batch (multi-query h * n, multi-head n) are no
+# multiple of 4: the bf16 backward's dk/dv pass then needs its lse and D
+# copies at rows rounded up to 32 for 16-byte aligned TMA boxes
+RAGGED_ROW_SHAPES = ((3, 1, 5, 7), (2, 8, 6, 7), (3, 1, 6, 9), (2, 1, 7, 261))
+
+
+def check_ragged_rows():
+    """The bf16 forward and backward attention kernels, multi-query and
+    multi-head, with and without a mask bias, at RAGGED_ROW_SHAPES against
+    the plain versions at the bf16 limit. Returns the rows."""
+    import torch
+    from minimagen_tpu_torch.ops import attention as attn
+    from minimagen_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 15)
+    rows = []
+    for b, h, n, j in RAGGED_ROW_SHAPES:
+        for kind in ("mqa", "mha"):
+            for with_bias in (False, True):
+                kv_shape = (b, j, 64) if kind == "mqa" else (b, h, j, 64)
+                q = (torch.randn(b, h, n, 64, generator=gen, device=DEVICE) / 8.0).bfloat16()
+                k, v = (torch.randn(kv_shape, generator=gen, device=DEVICE).bfloat16()
+                        for _ in "kv")
+                g = torch.randn(b, h, n, 64, generator=gen, device=DEVICE).bfloat16()
+                bias = None
+                if with_bias:
+                    keep = torch.rand(b, j, generator=gen, device=DEVICE) >= 0.25
+                    keep[:, 0] = True
+                    bias = attn.mask_bias(keep)
+                plain, plain_bwd = fa._PLAIN[kind]
+                out, lse = fa.attention_forward_kernel(kind, q, k, v, bias, with_lse=True)
+                grads = fa.attention_backward_kernel(kind, q, k, v, bias, out, g, lse)
+                refs = (plain(q, k, v, attn_bias=bias), *plain_bwd(q, k, v, g, attn_bias=bias))
+                sync()
+                err, lim = _worst(list(zip((out, *grads), refs)), "bfloat16")
+                rows.append(dict(kind=kind, shape=[b, h, n, j], bias=with_bias,
+                                 max_abs_err=err, limit=lim))
+                log(f"  {kind} {(b, h, n, j)} bfloat16{' + bias' if with_bias else ''}: "
+                    f"forward and backward max_abs_err {err:.3e} (limit {lim:.3e}) "
+                    f"{'ok' if err <= lim else 'FAIL'}")
+    if any(r["max_abs_err"] > r["limit"] for r in rows):
+        raise PhaseError("a bf16 attention kernel disagrees with the plain version at a "
+                         "ragged row count")
     return rows
 
 
@@ -2571,9 +2728,12 @@ def mesh_tp_rank(group, captions, dump_dir):
     lap("dump")
 
     gen = lambda: torch.Generator(device=DEVICE).manual_seed(SEED)  # noqa: E731
-    for dtype, steps in ((torch.bfloat16, SAMPLE_STEPS), (torch.float32, MESH_SAMPLE_STEPS)):
+    # bf16: DDIM@lambda at SOLVER_STEPS, whose colour the solver phase holds
+    # (0.0312 committed), in place of DDIM-50: the run's time budget
+    for dtype, steps, grid in ((torch.bfloat16, SOLVER_STEPS, {"grid": "lambda"}),
+                               (torch.float32, MESH_SAMPLE_STEPS, {})):
         kw = dict(cond_scale=COND_SCALE, sampler="ddim", sample_steps=steps,
-                  sr_start_noise_levels=0.2, cache_interval=None)
+                  sr_start_noise_levels=0.2, cache_interval=None, **grid)
         imagen = load_lite(device=DEVICE, dtype=dtype)
         embeds, masks = imagen.encode_text(captions)
         ref = imagen.sample(text_embeds=embeds, text_masks=masks, generator=gen(), **kw)
@@ -2675,7 +2835,8 @@ def mesh_tensor_parallel(captions):
         if not all(d["equal"].values()):
             failures.append(f"rank {r['rank']} dump restored across mesh shapes")
         s, f = r["sample_bf16"], r["sample_f32"]
-        log(f"{tag} bf16 sample(mesh=) {s['shape']} ({s['split']} layers split): base color_dist "
+        log(f"{tag} bf16 sample(mesh=), DDIM@lambda-{SOLVER_STEPS}, {s['shape']} "
+            f"({s['split']} layers split): base color_dist "
             f"{s['base']:.4f}, trunc/sr0.2 {s['trunc']:.4f} (limit {COLOR_LIMIT}); float32 against "
             f"sample(): {f['rel']:.2e} rel L2 (limit {MESH_TP_REL}), equal bits {f['equal']}")
         if not (s["finite"] and s["base"] <= COLOR_LIMIT and s["trunc"] <= COLOR_LIMIT
@@ -2788,6 +2949,163 @@ def tools_phase(imagen, captions):
             f"{c} {100 * f:.0f}%" for c, _, f in cats[:6]))
 
 
+# --------------------------------------------------------------------------- #
+# Orbax interchange: the JAX package's train states without Orbax             #
+# --------------------------------------------------------------------------- #
+ORBAX_FIXTURE = os.path.join(REPO, "tests", "data", "orbax_tiny")  # tests/test_torch_orbax.py
+ZSTD_F32_SAMPLE = os.path.join(REPO, "tests", "data", "zstd", "normal_f32_level1.zst")
+LITE_STATE_GB = 0.671  # the lite train state's arrays (float32 + bf16 first moment + EMA)
+ORBAX_STEPS = 2
+
+
+def orbax_fixture_restart():
+    """The committed fixture (a train state the JAX package wrote with
+    Orbax, bf16 first moment, EMA, step 3) restored into MinimagenTrain on
+    the card, which trains ORBAX_STEPS bf16 steps from it; the launch counts
+    reset just before. Also the reader's MB/s on the fixture's zstd chunks."""
+    import numpy as np
+    import torch
+    from minimagen_tpu_torch import orbax_format
+    from minimagen_tpu_torch import training as tt
+    from minimagen_tpu_torch.data.collate import DataLoader, MinimagenCollator
+    from minimagen_tpu_torch.data.dataset import SyntheticCaptionedImages
+    from minimagen_tpu_torch.models.imagen import Imagen
+    from minimagen_tpu_torch.models.unet import UnetConfig
+    from minimagen_tpu_torch.ops import kernels
+
+    state_dir = os.path.join(ORBAX_FIXTURE, "tmp", tt.ORBAX_STATE_DIR)
+    t0 = time.perf_counter()
+    leaves = orbax_format.read_checkpoint(state_dir)
+    dt = time.perf_counter() - t0
+    nbytes = sum(t.numel() * t.element_size() for _, _, t in leaves if t is not None)
+    log(f"  reader on the fixture's zstd chunks (as the JAX package's Orbax writes them; "
+        f"compressible values, match-heavy): {nbytes / 1e6:.3f} MB of arrays in {dt:.3f} s = "
+        f"{nbytes / 1e6 / dt:.2f} MB/s")
+    huffman = zstd_sample_rates()
+    spec = json.load(open(os.path.join(ORBAX_FIXTURE, "cascade.json")))
+    unets = [UnetConfig(**{k: tuple(v) if isinstance(v, list) else v for k, v in u.items()})
+             for u in spec["unets"]]
+    kw = dict(spec["imagen"], image_sizes=tuple(spec["imagen"]["image_sizes"]))
+    torch.manual_seed(SEED)
+    imagen = Imagen(unets, device=DEVICE, dtype=torch.bfloat16, param_dtype=torch.float32, **kw)
+    args = tt.load_testing_parameters(tt.get_minimagen_parser().parse_args([]))
+    args.__dict__.update(IMG_SIDE_LEN=16, EPOCHS=1, CHCKPT_NUM=1, MAX_NUM_WORDS=8,
+                         EMA=spec["ema"], RESTART_DIRECTORY=ORBAX_FIXTURE)
+    data = SyntheticCaptionedImages(num_items=2 * ORBAX_STEPS, side_length=16,
+                                    encoder_name=kw["text_encoder_name"], max_length=8,
+                                    device="cpu")
+    loader = lambda: DataLoader(data, batch_size=2, collate_fn=MinimagenCollator(max_length=8))  # noqa: E731
+    work = os.path.join(REPO, "build", "orbax_restart")
+    shutil.rmtree(work, ignore_errors=True)
+    cwd = os.getcwd()
+    os.makedirs(work)
+    os.chdir(work)
+    try:
+        kernels.reset_launch_counts()
+        summary = tt.MinimagenTrain(
+            "orbax", args, unets, imagen, loader(), loader(), tt.create_directory("training_orbax"),
+            optimizer=tt.make_optimizer(1e-4, 1, torch.bfloat16))
+        sync()
+        launches = dict(kernels.LAUNCHES)
+        log_text = open(os.path.join("training_orbax", tt.PROGRESS_FILE)).read()
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    losses = [h["batch_train"] for h in summary["history"]]
+    log(f"  restored at step {summary['start_step']} (Adam count "
+        f"{summary['start_adam_count']}), trained to {summary['final_step']}; losses {losses}; "
+        f"launches {launches}")
+    failures = []
+    if (summary["start_step"], summary["start_adam_count"]) != (spec["step"], spec["step"]):
+        failures.append("the restart did not take the fixture's step and count")
+    if summary["final_step"] != spec["step"] + ORBAX_STEPS or len(losses) != ORBAX_STEPS:
+        failures.append(f"{ORBAX_STEPS} steps were not trained")
+    if not np.isfinite(np.array(losses)).all():
+        failures.append("a loss is not finite")
+    if any(f in log_text for f in HARNESS_FAULTS):
+        failures.append("the progress log holds a failed step")
+    if failures:
+        raise PhaseError("; ".join(failures))
+    require_launched(launches, "orbax restart",
+                     names=("mha_forward", "mha_backward", "group_norm_forward",
+                            "group_norm_backward"))
+    return launches, dict(reader_mb_s=nbytes / 1e6 / dt, **huffman)
+
+
+def zstd_sample_rates():
+    """The zstd decoder's MB/s on Huffman-coded float32 (the committed
+    sample ZSTD_F32_SAMPLE: random mantissas, as a trained float32 state's)
+    and what that makes of a JAX-written lite state (LITE_STATE_GB)."""
+    import numpy as np
+    from minimagen_tpu_torch import orbax_format
+
+    frame = open(ZSTD_F32_SAMPLE, "rb").read()
+    runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        one = orbax_format.zstd_decompress(frame)
+        runs.append(len(one) / 1e6 / (time.perf_counter() - t0))
+    rate = sorted(runs)[1]
+    w = np.frombuffer(one, np.float32)
+    log(f"  reader on Huffman-coded float32 ({len(frame) / 1e6:.3f} MB zstd -> "
+        f"{len(one) / 1e6:.3f} MB): {', '.join(f'{r:.2f}' for r in runs)} MB/s (median "
+        f"{rate:.2f}): a JAX-written lite state ({LITE_STATE_GB} GB) ~"
+        f"{LITE_STATE_GB * 1e3 / rate:.0f} s")
+    if not (w.size == 1 << 18 and np.isfinite(w).all() and 0.99 < float(w.std()) < 1.01):
+        raise PhaseError("the zstd decoder gets the float32 sample wrong")
+    return dict(huffman_mb_s=rate)
+
+
+def orbax_lite_roundtrip():
+    """The full-width lite train state (the committed weights as float32
+    masters, a bf16 first moment, the EMA; the moments and the EMA filled
+    from a seeded generator) written by save_train_state_orbax and restored
+    by load_train_state_orbax into a second state: every tensor equal in
+    bits. The writer's and the reader's MB/s."""
+    import torch
+    from minimagen_tpu_torch import training as tt
+    from minimagen_tpu_torch.generate import load_lite
+
+    states = []
+    for seed in (SEED, SEED + 1):
+        imagen = load_lite(device=DEVICE, param_dtype=torch.float32)
+        state = tt.create_train_state(imagen, tt.make_optimizer(1e-4, 1, torch.bfloat16), ema=True)
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        with torch.no_grad():
+            for t in [*state.opt_state.mu, *state.opt_state.nu, *state.ema_params]:
+                t.copy_(torch.rand(t.shape, generator=gen, device=DEVICE))
+            if seed != SEED:
+                for p in state.params:
+                    p.add_(1.0)
+        state.step = state.opt_state.count = 1000 + seed
+        states.append(state)
+    src, dst = states
+    path = os.path.join(REPO, "build", "orbax_lite")
+    shutil.rmtree(path, ignore_errors=True)
+    nbytes = sum(t.numel() * t.element_size() for t in
+                 [*src.params, *src.opt_state.mu, *src.opt_state.nu, *src.ema_params])
+    try:
+        write_mb_s = tt.save_train_state_orbax(path, src)
+        t0 = time.perf_counter()
+        tt.load_train_state_orbax(path, dst)
+        sync()
+        read_mb_s = nbytes / 1e6 / (time.perf_counter() - t0)
+        on_disk = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(path)
+                      for f in fs)
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    equal = all(torch.equal(a.detach(), b.detach()) and a.dtype == b.dtype for xs, ys in (
+        (src.params, dst.params), (src.opt_state.mu, dst.opt_state.mu),
+        (src.opt_state.nu, dst.opt_state.nu), (src.ema_params, dst.ema_params))
+        for a, b in zip(xs, ys))
+    log(f"  lite state {nbytes / 1e9:.3f} GB of arrays ({on_disk / 1e9:.3f} GB on disk, warm "
+        f"page cache): writer {write_mb_s:.1f} MB/s, reader {read_mb_s:.1f} MB/s (to the card); "
+        f"equal bits {equal}; step {dst.step}, count {dst.opt_state.count}")
+    if not equal or (dst.step, dst.opt_state.count) != (src.step, src.opt_state.count):
+        raise PhaseError("the lite state does not come back in equal bits")
+    return dict(write_mb_s=write_mb_s, read_mb_s=read_mb_s, gb=nbytes / 1e9)
+
+
 class phase:
     """Context manager printing one line per phase with its elapsed seconds."""
 
@@ -2848,7 +3166,7 @@ def main():
     with open(os.path.join(LITE_CKPT_DIR, "eval", "metrics.json")) as f:
         captions = json.load(f)["_config"]["eval_captions"]
 
-    with phase("build kernels (one nvcc call)"):
+    with phase("build kernels (one nvcc per source, in parallel, then the link)"):
         kernels.library()
         with open(os.path.join(kernels.BUILD_DIR, "build.log")) as f:
             for line in ptxas_summary(f.read()):
@@ -2909,6 +3227,8 @@ def main():
         bwd_rows = backward_checks(train_shapes)
     with phase("attention kernels on fully dropped rows vs plain versions"):
         check_dropped_rows()
+    with phase("bf16 attention kernels at ragged row counts (rows % 4 != 0) vs plain versions"):
+        check_ragged_rows()
     with phase("reference train step: card float32 vs cpu float32"):
         reference_train_step()
     with phase(f"learn: train_lite, {LEARN_STEPS} steps, batch {TRAIN_BATCH}"):
@@ -2933,6 +3253,11 @@ def main():
     with phase("tools: stage_memory_analysis, the reference .pth round trip, the traces "
                "through utils/profiling"):
         tools_phase(imagen, captions)
+    with phase(f"orbax: the JAX-written fixture restored into MinimagenTrain, {ORBAX_STEPS} "
+               "bf16 steps"):
+        orbax_launches, _ = orbax_fixture_restart()
+    with phase("orbax: the lite train state through save/load_train_state_orbax"):
+        orbax_lite_roundtrip()
 
     # ---- the reference's default cascade ----------------------------------
     with phase("free the lite objects; build the default cascade (Base + Super, seed 0)"):
@@ -2976,6 +3301,8 @@ def main():
         time_stem_formulations()
     with phase("reference: Base 16px + Super 32px, card float32 vs cpu float32"):
         default_reference(default_captions[:1])
+    with phase("reference train step: Base 16px + Super 32px, card float32 vs cpu float32"):
+        default_train_reference()
     with phase(f"serve the default cascade: {DEFAULT_CAPTIONS} captions, DDIM-{SAMPLE_STEPS}, "
                f"cond_scale {COND_SCALE}, 64 -> 128"):
         serve_launches, serve_stats = serve(big, default_captions)
@@ -2997,7 +3324,7 @@ def main():
     runs = {"lite sampling": launches, "lite solvers": solver_launches, **lever_paths,
             "lite learning": train_launches, **harness_launches,
             "mesh world 1": mesh1_launches, "mesh 2 processes": mesh2_launches,
-            "mesh tensor parallel": mesh3_launches,
+            "mesh tensor parallel": mesh3_launches, "orbax restart": orbax_launches,
             "default serving": serve_launches,
             "default DPM++ serving": fast_serve_launches, "default training": big_train_launches}
     for name, counts in runs.items():

@@ -40,12 +40,13 @@ import statistics
 import sys
 import time
 
-# (kernel, shape): attention (b, h, n, j), GroupNorm (b, h, w, c, with scale-shift),
+# (kernel, shape): attention (b, h, n, j[, with the mask bias]), GroupNorm (b, h, w, c, with scale-shift),
 # depth-to-space + bias (b, h, w, f*f*c, f); torch_group_norm is
 # F.group_norm on the channels-last tensor, a row for reference that does
 # less work (no scale-shift, no SiLU) and is no yardstick of the kernels
 SHAPES = [("mqa_forward", (16, 8, 1024, 1025)), ("mha_forward", (16, 8, 1024, 259)),
           ("mqa_backward", (16, 8, 1024, 1025)), ("mha_backward", (16, 8, 1024, 259)),
+          ("mha_backward", (16, 8, 1024, 259, True)),
           ("group_norm_forward", (16, 256, 256, 32, False)),
           ("group_norm_forward", (16, 256, 256, 32, True)),
           ("group_norm_forward", (16, 128, 128, 64, True)),
@@ -196,7 +197,8 @@ def form_times(gen, calls=20):
 
 def launcher(kernel, shape, gen, dtype=None):
     """A no-argument call of `kernel` on seeded inputs of `shape` in `dtype`
-    (default bf16); float32 multi-head attention with a mask bias."""
+    (default bf16); float32 multi-head attention, and bf16 where the shape
+    asks for it, with a mask bias."""
     import torch
     from minimagen_tpu_torch.ops import flash_attention as fa
     from minimagen_tpu_torch.ops import group_norm as gn
@@ -211,12 +213,12 @@ def launcher(kernel, shape, gen, dtype=None):
         return lambda: sc.depth_to_space_bias(y2, bias, f)
     if kernel.startswith(("mqa", "mha")):
         kind = kernel[:3]
-        b, h, n, j = shape
+        b, h, n, j = shape[:4]
         q = rnd(b, h, n, 64) * 0.125
         kv = (b, j, 64) if kind == "mqa" else (b, h, j, 64)
         k, v, g = rnd(*kv), rnd(*kv), rnd(b, h, n, 64)
         bias = None
-        if kind == "mha" and dtype == torch.float32:
+        if kind == "mha" and (dtype == torch.float32 or len(shape) > 4):
             keep = torch.rand(b, j, generator=gen, device="cuda") >= 0.25
             keep[:, 0] = True
             bias = torch.where(keep, 0.0, fa.NEG_INF).float()[:, None, None, :].contiguous()

@@ -355,7 +355,12 @@ def load_train_state(path: str, state):
     """Restore a full train state written by either package into `state`
     (its structure, dtypes and devices kept; values copied in place; on a
     mesh each process keeps its blocks); returns `state`."""
-    tree = read_msgpack(path)
+    return restore_train_state(read_msgpack(path), state, path)
+
+
+def restore_train_state(tree: Dict[str, Any], state, path: str):
+    """:func:`load_train_state` of a tree laid out as :func:`train_state_dict`
+    lays it out (leaves numpy arrays, tensors or ints), read from `path`."""
     if set(tree) != {"step", "params", "opt_state", "ema_params"}:
         raise ValueError(f"{path} is not a train state: keys {sorted(tree)}")
     opt = state.opt_state

@@ -747,7 +747,8 @@ __global__ void __launch_bounds__(128 * (kBwdWgs + 1), 1)
                              const float* __restrict__ bias, const __nv_bfloat16* __restrict__ o,
                              const __nv_bfloat16* __restrict__ dout,
                              const float* __restrict__ lse, __nv_bfloat16* __restrict__ dq,
-                             float* __restrict__ delta, int rows, int j) {
+                             float* __restrict__ delta, float* __restrict__ lse_copy, int rows,
+                             int rows32, int j) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t q_s = align_smem(smem_raw);
   const uint32_t do_s = q_s + kBwdWgs * kTileBytes;
@@ -800,8 +801,13 @@ __global__ void __launch_bounds__(128 * (kBwdWgs + 1), 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, 1);
     acc += __shfl_xor_sync(0xffffffffu, acc, 2);
     d_r[i] = acc;
-    row_scalars(valid ? lse[r] : INFINITY, j, floor_r[i], neg_lse[i]);  // past the sample: P = 0
-    if (valid && t == 0) delta[r] = acc;
+    const float l = valid ? lse[r] : INFINITY;  // past the sample: P = 0
+    row_scalars(l, j, floor_r[i], neg_lse[i]);
+    if (valid && t == 0) {
+      const size_t r32 = static_cast<size_t>(sample) * rows32 + row;
+      delta[r32] = acc;
+      lse_copy[r32] = l;
+    }
   }
 
   float dq_acc[32], s_acc[32], dp_acc[32];
@@ -917,7 +923,8 @@ __global__ void __launch_bounds__(128 * (kBwdWgs + 1), 1)
                                const __grid_constant__ CUtensorMap delta_map,
                                const float* __restrict__ bias, __nv_bfloat16* __restrict__ dk,
                                __nv_bfloat16* __restrict__ dv, float* __restrict__ dk_acc,
-                               float* __restrict__ dv_acc, int rows, int j, int splits) {
+                               float* __restrict__ dv_acc, int rows, int rows32, int j,
+                               int splits) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t k_s = align_smem(smem_raw);
   const uint32_t v_s = k_s + kBwdWgs * kTileBytes;
@@ -944,7 +951,7 @@ __global__ void __launch_bounds__(128 * (kBwdWgs + 1), 1)
       }
       for (int it = 0; it < tiles; ++it) {
         const int s = it % kStages, r0 = (t_begin + it) * kRingTile;
-        const int flat = sample * rows + r0;  // lse / delta: flat (batch * rows) rows
+        const int flat = sample * rows32 + r0;  // lse / delta: rows at sample * rows32
         mbar_wait(ring.empty(s), Ring::parity(it) ^ 1);
         mbar_expect_tx(ring.full(s), 2 * kTileBytes + 2 * kRingTile * 4);
         tma_load_3d(q_s + s * kTileBytes, &q_map, ring.full(s), 0, r0, sample);
@@ -1285,7 +1292,8 @@ __global__ void __launch_bounds__(128 * (kWgs + 1), 1)
                              const float* __restrict__ bias, const __nv_bfloat16* __restrict__ o,
                              const __nv_bfloat16* __restrict__ dout,
                              const float* __restrict__ lse, __nv_bfloat16* __restrict__ dq,
-                             float* __restrict__ delta, int n, int j) {
+                             float* __restrict__ delta, float* __restrict__ lse_copy, int n,
+                             int n32, int j) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t q_s = align_smem(smem_raw);
   const uint32_t do_s = q_s + kWgs * kTileBytes;
@@ -1338,8 +1346,13 @@ __global__ void __launch_bounds__(128 * (kWgs + 1), 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, 1);
     acc += __shfl_xor_sync(0xffffffffu, acc, 2);
     d_r[i] = acc;
-    row_scalars(valid ? lse[r] : INFINITY, j, floor_r[i], neg_lse[i]);  // past n: P = 0
-    if (valid && t == 0) delta[r] = acc;
+    const float l = valid ? lse[r] : INFINITY;  // past n: P = 0
+    row_scalars(l, j, floor_r[i], neg_lse[i]);
+    if (valid && t == 0) {
+      const size_t r32 = static_cast<size_t>(bh) * n32 + row;
+      delta[r32] = acc;
+      lse_copy[r32] = l;
+    }
   }
 
   float dq_acc[32], s_acc[32], dp_acc[32];
@@ -1517,7 +1530,7 @@ __global__ void __launch_bounds__(128 * (kWgs + 1), 1)
                                const __grid_constant__ CUtensorMap delta_map,
                                const float* __restrict__ bias, __nv_bfloat16* __restrict__ dk,
                                __nv_bfloat16* __restrict__ dv, float* __restrict__ dk_acc,
-                               float* __restrict__ dv_acc, int n, int j, int splits) {
+                               float* __restrict__ dv_acc, int n, int n32, int j, int splits) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t k_s = align_smem(smem_raw);
   const uint32_t v_s = k_s + kWgs * kTileBytes;
@@ -1551,7 +1564,7 @@ __global__ void __launch_bounds__(128 * (kWgs + 1), 1)
       }
       for (int it = 0; it < tiles; ++it) {
         const int s = it % kStages, r0 = (t_begin + it) * kRingTile;
-        const int flat = bh * n + r0;  // lse / delta: flat (batch * heads * n) rows
+        const int flat = bh * n32 + r0;  // lse / delta: rows at (sample, head) * n32
         mbar_wait(ring.empty(s), Ring::parity(it) ^ 1);
         mbar_expect_tx(ring.full(s), 2 * kTileBytes + 2 * kRingTile * 4);
         tma_load_3d(q_s + s * kTileBytes, &q_map, ring.full(s), 0, r0, bh);
@@ -2466,6 +2479,8 @@ bool encode_rows(CUtensorMap* map, const void* ptr, int rows, int batch) {
 
 // A flat float32 vector as boxes of `box` (a 2-D map of one row: the
 // well-trodden form); entries past `count` read as zeros.
+size_t pad64(size_t x) { return (x + 63) / 64 * 64; }
+
 bool encode_flat(CUtensorMap* map, const float* ptr, size_t count, int box = kRingTile) {
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(count), 1};
   const cuuint64_t strides[1] = {(static_cast<cuuint64_t>(count) * 4 + 15) / 16 * 16};
@@ -2559,23 +2574,23 @@ int launch_mqa_forward_hopper(const void* q, const void* k, const void* v, const
 
 int launch_dq(const CUtensorMap& q_map, const CUtensorMap& do_map, const CUtensorMap& k_map,
               const CUtensorMap& v_map, const float* bias, const void* o, const void* dout,
-              const float* lse, void* dq, float* delta, int batch, int rows, int j,
-              cudaStream_t stream) {
+              const float* lse, void* dq, float* delta, float* lse_copy, int batch, int rows,
+              int rows32, int j, cudaStream_t stream) {
   static unsigned smem_set = 0;
   const cudaError_t err = allow_smem(mqa_bwd_dq_hopper_kernel, dq_smem(kBwdWgs), smem_set);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((rows + kBwdWgs * kWgRows - 1) / (kBwdWgs * kWgRows), batch);
   mqa_bwd_dq_hopper_kernel<<<grid, 128 * (kBwdWgs + 1), dq_smem(kBwdWgs), stream>>>(
       q_map, do_map, k_map, v_map, bias, static_cast<const __nv_bfloat16*>(o),
-      static_cast<const __nv_bfloat16*>(dout), lse, static_cast<__nv_bfloat16*>(dq), delta, rows,
-      j);
+      static_cast<const __nv_bfloat16*>(dout), lse, static_cast<__nv_bfloat16*>(dq), delta,
+      lse_copy, rows, rows32, j);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_dkdv(const CUtensorMap& q_map, const CUtensorMap& do_map, const CUtensorMap& k_map,
                 const CUtensorMap& v_map, const CUtensorMap& lse_map, const CUtensorMap& delta_map,
                 const float* bias, void* dk, void* dv, float* dk_acc, float* dv_acc, int batch,
-                int rows, int j, cudaStream_t stream) {
+                int rows, int rows32, int j, cudaStream_t stream) {
   static unsigned smem_set = 0;
   const cudaError_t err = allow_smem(mqa_bwd_dkdv_hopper_kernel, dkdv_smem(kBwdWgs), smem_set);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -2584,34 +2599,37 @@ int launch_dkdv(const CUtensorMap& q_map, const CUtensorMap& do_map, const CUten
   mqa_bwd_dkdv_hopper_kernel<<<dim3(key_blocks * splits, batch), 128 * (kBwdWgs + 1),
                                dkdv_smem(kBwdWgs), stream>>>(
       q_map, do_map, k_map, v_map, lse_map, delta_map, bias, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), dk_acc, dv_acc, rows, j, splits);
+      static_cast<__nv_bfloat16*>(dv), dk_acc, dv_acc, rows, rows32, j, splits);
   if (splits > 1) launch_reduce<__nv_bfloat16>(dk_acc, dv_acc, dk, dv, splits, batch, j, stream);
   return static_cast<int>(cudaGetLastError());
 }
 
-// scratch: float32, delta (batch * rows, rounded up to 4) then two regions of
-// kMaxRowSplits * batch * j * 64 (dk, dv partial slices)
+// scratch: float32, D and a copy of the lse (pad64(batch * rows32) each,
+// rows32 = rows rounded up to 32: pass 2's boxes start 16-byte aligned, as
+// TMA needs), then two regions of kMaxRowSplits * batch * j * 64 (dk, dv
+// partial slices)
 int launch_mqa_backward_hopper(const void* q, const void* k, const void* v, const float* bias,
                                const void* o, const void* dout, const float* lse, void* dq,
                                void* dk, void* dv, float* scratch, int batch, int heads, int n,
                                int j, cudaStream_t stream) {
-  const int rows = heads * n;
-  const size_t flat = static_cast<size_t>(batch) * rows;
+  const int rows = heads * n, rows32 = (rows + 31) / 32 * 32;
+  const size_t flat32 = pad64(static_cast<size_t>(batch) * rows32);
   float* delta = scratch;
-  float* dk_acc = scratch + (flat + 3) / 4 * 4;
+  float* lse_copy = delta + flat32;
+  float* dk_acc = lse_copy + flat32;
   float* dv_acc = dk_acc + static_cast<size_t>(kMaxRowSplits) * batch * j * kHeadDim;
   const cudaError_t dev_err = use_device_of(q);
   if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
   CUtensorMap q_map, do_map, k_map, v_map, lse_map, delta_map;
   if (!encode_rows(&q_map, q, rows, batch) || !encode_rows(&do_map, dout, rows, batch) ||
       !encode_rows(&k_map, k, j, batch) || !encode_rows(&v_map, v, j, batch) ||
-      !encode_flat(&lse_map, lse, flat) || !encode_flat(&delta_map, delta, flat))
+      !encode_flat(&lse_map, lse_copy, flat32) || !encode_flat(&delta_map, delta, flat32))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int err = launch_dq(q_map, do_map, k_map, v_map, bias, o, dout, lse, dq, delta, batch,
-                               rows, j, stream);
+  const int err = launch_dq(q_map, do_map, k_map, v_map, bias, o, dout, lse, dq, delta, lse_copy,
+                            batch, rows, rows32, j, stream);
   if (err != 0) return err;
   return launch_dkdv(q_map, do_map, k_map, v_map, lse_map, delta_map, bias, dk, dv, dk_acc,
-                        dv_acc, batch, rows, j, stream);
+                     dv_acc, batch, rows, rows32, j, stream);
 }
 
 // ---- launches of the multi-head kernels ----
@@ -2707,8 +2725,8 @@ int launch_mha_forward_hopper(const void* q, const void* k, const void* v, const
 template <int kWgs, int kTail>
 int launch_mha_dq(const CUtensorMap& q_map, const CUtensorMap& do_map, const CUtensorMap& k_map,
                   const CUtensorMap& v_map, const float* bias, const void* o, const void* dout,
-                  const float* lse, void* dq, float* delta, int batch, int heads, int n, int j,
-                  cudaStream_t stream) {
+                  const float* lse, void* dq, float* delta, float* lse_copy, int batch, int heads,
+                  int n, int n32, int j, cudaStream_t stream) {
   static unsigned smem_set = 0;
   const cudaError_t err =
       allow_smem(mha_bwd_dq_hopper_kernel<kWgs, kTail>, dq_smem(kWgs), smem_set);
@@ -2716,7 +2734,8 @@ int launch_mha_dq(const CUtensorMap& q_map, const CUtensorMap& do_map, const CUt
   const dim3 grid((n + kWgs * kWgRows - 1) / (kWgs * kWgRows), heads, batch);
   mha_bwd_dq_hopper_kernel<kWgs, kTail><<<grid, 128 * (kWgs + 1), dq_smem(kWgs), stream>>>(
       q_map, do_map, k_map, v_map, bias, static_cast<const __nv_bfloat16*>(o),
-      static_cast<const __nv_bfloat16*>(dout), lse, static_cast<__nv_bfloat16*>(dq), delta, n, j);
+      static_cast<const __nv_bfloat16*>(dout), lse, static_cast<__nv_bfloat16*>(dq), delta,
+      lse_copy, n, n32, j);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2725,7 +2744,7 @@ int launch_mha_dkdv(const CUtensorMap& q_map, const CUtensorMap& do_map, const C
                     const CUtensorMap& v_map, const CUtensorMap& lse_map,
                     const CUtensorMap& delta_map, const float* bias, void* dk, void* dv,
                     float* dk_acc, float* dv_acc, int key_blocks, int splits, int batch,
-                    int heads, int n, int j, cudaStream_t stream) {
+                    int heads, int n, int n32, int j, cudaStream_t stream) {
   constexpr int smem = dkdv_smem(kWgs) + (kTail ? 2 * kTileBytes + 2 * kStagedBytes : 0);
   static unsigned smem_set = 0;
   const cudaError_t err = allow_smem(mha_bwd_dkdv_hopper_kernel<kWgs, kTail>, smem, smem_set);
@@ -2733,48 +2752,50 @@ int launch_mha_dkdv(const CUtensorMap& q_map, const CUtensorMap& do_map, const C
   mha_bwd_dkdv_hopper_kernel<kWgs, kTail>
       <<<dim3(key_blocks * splits, heads, batch), 128 * (kWgs + 1), smem, stream>>>(
           q_map, do_map, k_map, v_map, lse_map, delta_map, bias, static_cast<__nv_bfloat16*>(dk),
-          static_cast<__nv_bfloat16*>(dv), dk_acc, dv_acc, n, j, splits);
+          static_cast<__nv_bfloat16*>(dv), dk_acc, dv_acc, n, n32, j, splits);
   return static_cast<int>(cudaGetLastError());
 }
 
-// scratch: float32, delta (batch * heads * n, rounded up to 4), then, only
-// where pass 2 splits the rows, two regions of splits * batch * heads * j *
-// 64 (dk, dv partial slices); mmt_mha_backward_row_splits gives the count
+// scratch: float32, D and a copy of the lse (pad64(batch * heads * n32)
+// each, n32 = n rounded up to 32: pass 2's boxes start 16-byte aligned), then,
+// only where pass 2 splits the rows, two regions of splits * batch * heads * j
+// * 64 (dk, dv partial slices); mmt_mha_backward_row_splits gives the count
 int launch_mha_backward_hopper(const void* q, const void* k, const void* v, const float* bias,
                                const void* o, const void* dout, const float* lse, void* dq,
                                void* dk, void* dv, float* scratch, int batch, int heads, int n,
                                int j, cudaStream_t stream) {
-  const int bh = batch * heads;
-  const size_t flat = static_cast<size_t>(bh) * n;
+  const int bh = batch * heads, n32 = (n + 31) / 32 * 32;
+  const size_t flat32 = pad64(static_cast<size_t>(bh) * n32);
   const KeyBlocking kb = mha_key_blocking(j);
   const int splits = mha_row_splits(batch, heads, n, j);
   float* delta = scratch;
-  float* dk_acc = scratch + (flat + 3) / 4 * 4;
+  float* lse_copy = delta + flat32;
+  float* dk_acc = lse_copy + flat32;
   float* dv_acc = dk_acc + static_cast<size_t>(splits) * bh * j * kHeadDim;
   const cudaError_t dev_err = use_device_of(q);
   if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
   CUtensorMap q_map, do_map, k_map, v_map, lse_map, delta_map;
   if (!encode_rows(&q_map, q, n, bh) || !encode_rows(&do_map, dout, n, bh) ||
       !encode_rows(&k_map, k, j, bh) || !encode_rows(&v_map, v, j, bh) ||
-      !encode_flat(&lse_map, lse, flat) || !encode_flat(&delta_map, delta, flat))
+      !encode_flat(&lse_map, lse_copy, flat32) || !encode_flat(&delta_map, delta, flat32))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool wide_dq = mha_wgs((n + kWgRows - 1) / kWgRows, bh, 2) == 2;
   int err;
   if (narrow_tail(j))
     err = wide_dq ? launch_mha_dq<2, 16>(q_map, do_map, k_map, v_map, bias, o, dout, lse, dq, delta,
-                                         batch, heads, n, j, stream)
+                                         lse_copy, batch, heads, n, n32, j, stream)
                   : launch_mha_dq<1, 16>(q_map, do_map, k_map, v_map, bias, o, dout, lse, dq, delta,
-                                         batch, heads, n, j, stream);
+                                         lse_copy, batch, heads, n, n32, j, stream);
   else
     err = wide_dq ? launch_mha_dq<2, 64>(q_map, do_map, k_map, v_map, bias, o, dout, lse, dq, delta,
-                                         batch, heads, n, j, stream)
+                                         lse_copy, batch, heads, n, n32, j, stream)
                   : launch_mha_dq<1, 64>(q_map, do_map, k_map, v_map, bias, o, dout, lse, dq, delta,
-                                         batch, heads, n, j, stream);
+                                         lse_copy, batch, heads, n, n32, j, stream);
   if (err != 0) return err;
   const auto dkdv = kb.wgs == 2 ? (kb.tail ? launch_mha_dkdv<2, true> : launch_mha_dkdv<2, false>)
                                 : (kb.tail ? launch_mha_dkdv<1, true> : launch_mha_dkdv<1, false>);
   err = dkdv(q_map, do_map, k_map, v_map, lse_map, delta_map, bias, dk, dv, dk_acc, dv_acc,
-             kb.blocks, splits, batch, heads, n, j, stream);
+             kb.blocks, splits, batch, heads, n, n32, j, stream);
   if (err != 0 || splits == 1) return err;
   launch_reduce<__nv_bfloat16>(dk_acc, dv_acc, dk, dv, splits, bh, j, stream);
   return static_cast<int>(cudaGetLastError());
@@ -2797,7 +2818,6 @@ bool encode_f32(CUtensorMap* map, const float* ptr, int inner, int rows, int bat
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-size_t pad64(size_t x) { return (x + 63) / 64 * 64; }
 
 // The big and small parts of `count` floats at x (count a multiple of 4).
 void launch_split(const float* x, float* big, float* small, size_t count, cudaStream_t stream) {

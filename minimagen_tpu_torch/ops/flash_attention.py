@@ -141,7 +141,7 @@ def _pad64(x: int) -> int:
 
 
 def _qbatch_rows(kind: str, b: int, h: int, n: int):
-    """The float32 kernels' q-batches and their rows: multi-query a sample
+    """The backward kernels' q-batches and their rows: multi-query a sample
     and its h * n rows across heads, multi-head a (sample, head) and its n."""
     return (b, h * n) if kind == "mqa" else (b * h, n)
 
@@ -178,30 +178,30 @@ MAX_ROW_SPLITS = 4  # csrc/flash_attention.cu kMaxRowSplits: float32 dk/dv slice
 
 def backward_scratch_floats(kind: str, dtype: torch.dtype, b: int, h: int, n: int, j: int,
                             d: int = 64, splits: int = 1) -> int:
-    """Float32 scratch of the backward kernel: the rows' D = rowsum(dO * O),
-    then dk/dv partial sums. The bf16 kernels keep dk/dv in registers: the
-    multi-query one sums over all heads and keeps at most MAX_ROW_SPLITS
-    slices per sample; the multi-head one writes dk/dv directly and keeps
-    `splits` slices per (sample, head) only where its dk/dv pass splits the
-    rows (`splits` > 1, from :func:`mha_row_splits`). D is rounded up to 4
-    floats there, so the slices stay 16-byte aligned. The float32 kernels
-    sum dk/dv in registers too (over the heads for multi-query) and keep
-    `splits` slices per q-batch (:func:`tf32_row_splits`) only where
-    `splits` > 1; D and a copy of the lse come first (each q-batch's rows
-    rounded up to 32, the whole to 64 floats), and the inputs follow in big
-    and small tf32 parts: q and dO, k and v as laid out, then K^T, Q^T and
-    dO^T with their keys or rows padded to a multiple of 64 (csrc
-    launch_backward_f32)."""
-    if dtype == torch.bfloat16:
-        delta = -(-b * h * n // 4) * 4
-        if kind == "mqa":
-            return delta + 2 * MAX_ROW_SPLITS * b * j * d
-        return delta + (2 * splits * b * h * j * d if splits > 1 else 0)
+    """Float32 scratch of the backward kernel. Both types first keep the
+    rows' D = rowsum(dO * O) and a copy of the lse, each q-batch's rows
+    rounded up to 32 and the whole to 64 floats, so that every box the dk/dv
+    pass loads starts 16-byte aligned, as TMA needs. Then dk/dv partial
+    sums. The bf16 kernels keep dk/dv in registers: the multi-query one sums
+    over all heads and keeps at most MAX_ROW_SPLITS slices per sample; the
+    multi-head one writes dk/dv directly and keeps `splits` slices per
+    (sample, head) only where its dk/dv pass splits the rows (`splits` > 1,
+    from :func:`mha_row_splits`). The float32 kernels sum dk/dv in registers
+    too (over the heads for multi-query) and keep `splits` slices per
+    q-batch (:func:`tf32_row_splits`) only where `splits` > 1, and the
+    inputs follow in big and small tf32 parts: q and dO, k and v as laid
+    out, then K^T, Q^T and dO^T with their keys or rows padded to a multiple
+    of 64 (csrc launch_backward_f32)."""
     qbatch, rows = _qbatch_rows(kind, b, h, n)
+    lse_d = 2 * _pad64(qbatch * -(-rows // 32) * 32)
+    if dtype == torch.bfloat16:
+        if kind == "mqa":
+            return lse_d + 2 * MAX_ROW_SPLITS * b * j * d
+        return lse_d + (2 * splits * b * h * j * d if splits > 1 else 0)
     slices = 2 * splits * qbatch * j * d if splits > 1 else 0
     split = 4 * qbatch * rows * d + 4 * qbatch * j * d + 2 * qbatch * d * _pad64(j) \
         + 4 * qbatch * d * _pad64(rows)
-    return 2 * _pad64(qbatch * -(-rows // 32) * 32) + slices + split
+    return lse_d + slices + split
 
 
 def mha_row_splits(q: torch.Tensor, j: int) -> int:

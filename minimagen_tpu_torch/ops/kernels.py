@@ -1,7 +1,8 @@
 """Build, load and launch the port's CUDA kernels (``csrc/*.cu``).
 
-One ``nvcc`` call compiles every source for ``sm_90a`` into one shared
-library with a plain C interface, which ``ctypes`` loads. The library lives
+One ``nvcc`` per source, all started together, compiles the sources for
+``sm_90a``, and one more links them into a shared library with a plain C
+interface, which ``ctypes`` loads. The library lives
 in ``build/minimagen_tpu_torch/`` at the root of the checkout (listed in
 ``.gitignore``), is built at first use, and is rebuilt only when a hash of the
 sources and flags changes. Nothing here includes PyTorch's headers, so the
@@ -24,7 +25,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -109,24 +110,46 @@ def nvcc_executable() -> str:
     return found
 
 
-def nvcc_command(output: str) -> List[str]:
-    cu = [p for p in sources() if p.endswith(".cu")]
-    return [nvcc_executable(), *NVCC_FLAGS, "-o", output, *cu]
+def nvcc_commands(output: str) -> Tuple[List[List[str]], List[str]]:
+    """The compile of each ``.cu`` source into an object beside `output`,
+    and the link of those objects into the library `output`."""
+    nvcc = nvcc_executable()
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    compiles, objects = [], []
+    for src in (p for p in sources() if p.endswith(".cu")):
+        obj = f"{output}.{os.path.basename(src)}.o"
+        compiles.append([nvcc, *compile_flags, "-c", "-o", obj, src])
+        objects.append(obj)
+    return compiles, [nvcc, *NVCC_FLAGS, "-o", output, *objects]
 
 
 def build() -> str:
-    """Compile the library unless a build of the current sources exists;
-    returns its path."""
+    """Compile the library unless a build of the current sources exists
+    (the sources in parallel, then the link); returns its path."""
     out = library_path()
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    proc = subprocess.run(nvcc_command(tmp), capture_output=True, text=True)
+    compiles, link = nvcc_commands(tmp)
+    logs = [f"{tmp}.{os.path.basename(cmd[-1])}.log" for cmd in compiles]
+    procs = []
+    for cmd, log in zip(compiles, logs):
+        with open(log, "w") as f:
+            procs.append(subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT))
+    codes = [p.wait() for p in procs]
+    text = "".join(open(log).read() for log in logs)
+    if not any(codes):
+        proc = subprocess.run(link, capture_output=True, text=True)
+        codes.append(proc.returncode)
+        text += proc.stdout + proc.stderr
     with open(os.path.join(BUILD_DIR, "build.log"), "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+        f.write(text)
+    for path in [*logs, *(cmd[cmd.index("-o") + 1] for cmd in compiles)]:
+        if os.path.exists(path):
+            os.remove(path)
+    if any(codes):
+        raise RuntimeError(f"nvcc failed ({codes}):\n{text}")
     os.replace(tmp, out)
     return out
 

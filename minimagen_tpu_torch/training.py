@@ -40,8 +40,10 @@ U-Nets in ``state_dicts/``, full-state dumps in ``tmp/`` from which a
 restart resumes, a per-batch watchdog and crash dumps. Checkpoints are the
 JAX package's flax-msgpack files (``checkpoint.py``); a mesh run's full
 state is the port's own sharded directory (``parallel/checkpoint.py``),
-restorable at any world size. Not ported: the JAX
-package's Orbax dumps of its mesh runs.
+restorable at any world size. The JAX package's Orbax dumps of its mesh
+runs are read and written by :func:`load_train_state_orbax` and
+:func:`save_train_state_orbax` (``orbax_format.py``, no Orbax needed), and
+a restart resumes from one.
 """
 from __future__ import annotations
 
@@ -51,6 +53,7 @@ import hashlib
 import inspect
 import json
 import os
+import shutil
 import signal
 import threading
 import time
@@ -62,7 +65,9 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tupl
 import numpy as np
 import torch
 
-from .checkpoint import load_train_state, save_train_state, save_unet_checkpoint
+from . import orbax_format
+from .checkpoint import (load_train_state, restore_train_state, save_train_state,
+                         save_unet_checkpoint, train_state_dict)
 from .data.collate import DataLoader, MinimagenCollator, get_minimagen_dl_opts  # noqa: F401
 from .data.dataset import ConceptualCaptions, SyntheticCaptionedImages  # noqa: F401
 from .generate import LITE_CKPT_DIR, lite_imagen
@@ -871,10 +876,94 @@ def swapped_params(state: TrainState):
             pmesh.sync_params(state.params, state.plan, state.mesh)
 
 
+def _orbax_leaves(tree: Any, keys: Tuple[str, ...] = ()) -> Iterator[orbax_format.Leaf]:
+    """The leaves of a :func:`checkpoint.train_state_dict` tree as Orbax
+    records the JAX ``TrainState``'s: names of dicts and fields sorted as
+    JAX flattens them, a tuple's indices (all-digit keys) as sequence keys,
+    and an empty optimizer state or a missing EMA as a leaf of None."""
+    if isinstance(tree, dict) and tree:
+        for k in (tree if not keys else sorted(tree)):
+            yield from _orbax_leaves(tree[k], keys + (k,))
+        return
+    types = tuple(orbax_format.SEQUENCE_KEY if k.isdigit() else orbax_format.DICT_KEY
+                  for k in keys)
+    if tree is None or isinstance(tree, dict):
+        yield keys, types, None
+    else:
+        yield keys, types, tree if isinstance(tree, torch.Tensor) else torch.from_numpy(
+            np.asarray(tree))
+
+
+def _whole_state(state: TrainState) -> TrainState:
+    """`state` with every tensor whole: on a mesh the blocks of each leaf
+    gathered (every process takes part); one device's state as it is."""
+    if state.mesh is None:
+        return state
+    whole = lambda ts: pmesh.full_tensors(ts, state.plan, state.mesh, state.shapes)  # noqa: E731
+    opt = state.opt_state
+    return dataclasses.replace(
+        state, params=whole(state.local_params()), mesh=None, plan=None,
+        ema_params=None if state.ema_params is None else whole(state.ema_params),
+        opt_state=dataclasses.replace(
+            opt, mu=whole(opt.mu), nu=whole(opt.nu),
+            acc_grads=None if opt.acc_grads is None else whole(opt.acc_grads)))
+
+
+def save_train_state_orbax(directory: str, state: TrainState) -> Optional[float]:
+    """Write the full train state as the JAX package's
+    ``save_train_state_orbax`` does (``orbax.checkpoint.StandardCheckpointer``
+    on its ``TrainState``), which its ``load_train_state_orbax`` restores
+    bit for bit; no Orbax needed (``orbax_format.py``). On a mesh every
+    process takes part and process 0 writes the state, gathered whole.
+    Returns the MB/s of writing the arrays (process 0; None elsewhere)."""
+    whole = _whole_state(state)
+    if state.mesh is not None and not state.mesh.is_leader:
+        collectives.barrier(state.mesh.world)
+        return None
+    start = time.perf_counter()
+    if os.path.isdir(directory):
+        shutil.rmtree(directory)
+    nbytes = orbax_format.write_checkpoint(directory, _orbax_leaves(train_state_dict(whole)))
+    rate = nbytes / 1e6 / (time.perf_counter() - start)
+    if state.mesh is not None:
+        collectives.barrier(state.mesh.world)
+    return rate
+
+
+def load_train_state_orbax(directory: str, state: TrainState) -> TrainState:
+    """Restore a train state that the JAX package's ``save_train_state_orbax``
+    wrote (or :func:`save_train_state_orbax`), sharded or not, into `state`:
+    parameters, Adam's moments (bf16 or float32), the count, the EMA and the
+    step, each copied onto the state's device, or on a mesh onto this
+    process's part of it; returns `state`."""
+    tree: Dict[str, Any] = {}
+    for keys, _, t in orbax_format.read_checkpoint(directory):
+        node = tree
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        if t is None:
+            node[keys[-1]] = None if keys == ("ema_params",) else {}
+        else:
+            node[keys[-1]] = t.float().numpy() if t.is_floating_point() else t.numpy()
+    return restore_train_state(tree, state, directory)
+
+
+def dump_kind(path: str) -> str:
+    """Which full-state dump `path` is: 'orbax', 'sharded' or 'msgpack'."""
+    if os.path.isdir(path):
+        return "orbax" if os.path.exists(os.path.join(path, orbax_format.METADATA_FILE)) \
+            else "sharded"
+    return "msgpack"
+
+
 def load_dump(path: str, state: TrainState) -> TrainState:
     """Restore a full-state dump into `state`: a ``train_state.ckpt`` of
-    either package (one device), or a sharded directory of a mesh run."""
-    if os.path.isdir(path):
+    either package (one device), a sharded directory of a mesh run, or an
+    Orbax directory of the JAX package's mesh runs."""
+    kind = dump_kind(path)
+    if kind == "orbax":
+        return load_train_state_orbax(path, state)
+    if kind == "sharded":
         return load_sharded_state(path, state)
     return load_train_state(path, state)
 
@@ -891,8 +980,10 @@ def MinimagenTrain(timestamp, args, unets, imagen: Imagen, train_dataloader, val
     every stage is validated on `valid_dataloader` and a stage that beats
     its best validation loss is written to ``state_dicts/``; the progress
     goes to ``training_progess.txt``. A restart (``args.RESTART_DIRECTORY``)
-    resumes from its ``tmp/train_state.ckpt``: parameters, Adam's moments,
-    the step and the EMA. A batch of which the collator left nothing is
+    resumes from its ``tmp/`` full-state dump (the port's sharded one, else
+    ``train_state.ckpt``, else the JAX package's Orbax directory
+    ``train_state_orbax/``): parameters, Adam's moments, the step and the
+    EMA. A batch of which the collator left nothing is
     skipped; a batch hung past `timeout` seconds is skipped (an epoch's
     first batch is exempt: the run's first builds the kernels); a failing
     batch dumps the state to ``tmp/`` and training goes on, but where the
@@ -951,13 +1042,11 @@ def MinimagenTrain(timestamp, args, unets, imagen: Imagen, train_dataloader, val
         elif os.path.exists(ts_path):
             last_dump = os.path.abspath(ts_path)
         elif os.path.isdir(os.path.join(restart_dir, "tmp", ORBAX_STATE_DIR)):
-            raise NotImplementedError(
-                f"{restart_dir}/tmp holds only an Orbax dump of the JAX package; Orbax's "
-                f"format is not ported (restart from a {TRAIN_STATE_FILE} or "
-                f"{SHARDED_STATE_DIR}/ dump)")
+            last_dump = os.path.abspath(os.path.join(restart_dir, "tmp", ORBAX_STATE_DIR))
         if last_dump is not None:
             load_dump(last_dump, state)
-            print(f"Restored full train state (step {state.step}) from {last_dump}")
+            print(f"Restored full train state (step {state.step}) from {last_dump} "
+                  f"[{dump_kind(last_dump)}]")
     start_step, start_count = state.step, state.opt_state.count
     train_step = make_train_step(imagen, optimizer, ema_decay=ema_decay or 0.9999, mesh=mesh)
     eval_step = make_eval_step(imagen, mesh)

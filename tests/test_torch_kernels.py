@@ -73,14 +73,21 @@ def test_wrapper_checks_run_before_any_build():
 
 
 def test_nvcc_command_builds_all_sources_for_sm90a(monkeypatch):
+    """One compile per source (started together by ``build``), each for
+    sm_90a with position-independent code, then one link of their objects
+    into the shared library."""
     monkeypatch.setattr(kernels, "nvcc_executable", lambda: "nvcc")
-    cmd = kernels.nvcc_command("out.so")
-    joined = " ".join(cmd)
-    assert "-gencode arch=compute_90a,code=sm_90a" in joined
-    assert "-shared" in cmd and "-fPIC" in cmd and cmd[cmd.index("-o") + 1] == "out.so"
-    cu = sorted(os.path.basename(p) for p in cmd if p.endswith(".cu"))
+    compiles, link = kernels.nvcc_commands("out.so")
+    objects = []
+    for cmd in compiles:
+        assert "-gencode arch=compute_90a,code=sm_90a" in " ".join(cmd)
+        assert "-c" in cmd and "-fPIC" in cmd and "-shared" not in cmd
+        objects.append(cmd[cmd.index("-o") + 1])
+        assert not any(a.startswith("-I") for a in cmd)  # no PyTorch headers: plain C interface
+    cu = sorted(os.path.basename(cmd[-1]) for cmd in compiles)
     assert cu == ["depth_to_space.cu", "flash_attention.cu", "group_norm.cu"]
-    assert not any(a.startswith("-I") for a in cmd)  # no PyTorch headers: plain C interface
+    assert "-shared" in link and link[link.index("-o") + 1] == "out.so"
+    assert link[-len(objects):] == objects and len(set(objects)) == 3
     for src in kernels.sources():
         assert "torch/" not in open(src).read(), src
 
@@ -98,11 +105,12 @@ def test_library_name_tracks_source_hash(tmp_path, monkeypatch):
 @pytest.mark.parametrize("b,h,n,j", [(16, 8, 1024, 1025), (2, 8, 100, 101), (3, 1, 5, 7),
                                      (8193, 8, 16, 17)])
 def test_backward_scratch_is_sized_by_kind(b, h, n, j):
-    """The bf16 backwards keep D (rounded up to 4 floats): multi-query then
-    at most 4 float32 dk/dv slices per sample, multi-head none unless its
-    dk/dv pass splits the rows, then one slice per split and (sample, head).
-    The float32 (3xTF32) kernels keep D and a copy of the lse (each
-    q-batch's rows rounded up to 32 floats, the whole to 64), one dk/dv
+    """Both types' backwards keep D and a copy of the lse (each q-batch's
+    rows rounded up to 32 floats, the whole to 64), so that the dk/dv pass's
+    boxes start 16-byte aligned at any row count. The bf16 ones then keep,
+    multi-query, at most 4 float32 dk/dv slices per sample, multi-head none
+    unless its dk/dv pass splits the rows, then one slice per split and
+    (sample, head). The float32 (3xTF32) kernels keep one dk/dv
     slice per split and q-batch (a sample for multi-query, a (sample, head)
     for multi-head) only where the rows split, then the inputs in big and
     small tf32 parts: q and dO, k and v, then K^T, Q^T and dO^T padded to
@@ -121,14 +129,15 @@ def test_backward_scratch_is_sized_by_kind(b, h, n, j):
         assert tflash.forward_scratch_floats(kind, torch.float32, b, h, n, j) \
             == 2 * qbatch * j * 64 + 2 * qbatch * 64 * pad(j)
         assert tflash.forward_scratch_floats(kind, torch.bfloat16, b, h, n, j) == 0
-    delta = -(-b * h * n // 4) * 4
-    assert delta % 4 == 0 and delta >= b * h * n
+    mqa_d = 2 * pad(b * -(-h * n // 32) * 32)
+    mha_d = 2 * pad(b * h * -(-n // 32) * 32)
+    assert mqa_d >= 2 * b * h * n and mha_d >= 2 * b * h * n
     got = tflash.backward_scratch_floats("mqa", torch.bfloat16, b, h, n, j)
-    assert got == delta + 2 * tflash.MAX_ROW_SPLITS * b * j * 64
-    assert tflash.backward_scratch_floats("mha", torch.bfloat16, b, h, n, j) == delta
+    assert got == mqa_d + 2 * tflash.MAX_ROW_SPLITS * b * j * 64
+    assert tflash.backward_scratch_floats("mha", torch.bfloat16, b, h, n, j) == mha_d
     for splits in (2, tflash.MAX_ROW_SPLITS):
         got = tflash.backward_scratch_floats("mha", torch.bfloat16, b, h, n, j, splits=splits)
-        assert got == delta + 2 * splits * b * h * j * 64
+        assert got == mha_d + 2 * splits * b * h * j * 64
     src = open(os.path.join(kernels.CSRC_DIR, "flash_attention.cu")).read()
     assert f"constexpr int kMaxRowSplits = {tflash.MAX_ROW_SPLITS};" in src
 
@@ -340,6 +349,25 @@ def test_float32_attention_at_path_and_edge_shapes_on_card(cuda, kind, b, h, n, 
     g = _t(np.random.default_rng(6).normal(size=q.shape).astype(np.float32)).to(cuda)
     bias = _t(_mask_bias_np(b, j)).to(cuda) if with_bias else None
     _check_forward_backward(kind, torch.float32, q, k, v, g, bias)
+
+
+# bf16 shapes whose rows per q-batch are no multiple of 4 (multi-query h * n,
+# multi-head n): the dk/dv pass's lse and D boxes start 16-byte aligned only
+# through the backward's rows-rounded-to-32 layout
+BF16_RAGGED_ROW_SHAPES = [(3, 1, 5, 7), (2, 8, 6, 7), (3, 1, 6, 9), (2, 1, 7, 261)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("kind", ["mqa", "mha"])
+@pytest.mark.parametrize("b,h,n,j", BF16_RAGGED_ROW_SHAPES)
+def test_bf16_attention_at_ragged_row_counts_on_card(cuda, b, h, n, j, kind, with_bias):
+    """The bf16 forward and backward against the plain versions at the bf16
+    limit where a q-batch's row count is not a multiple of 4."""
+    q, k, v = (_t(a).to(cuda, torch.bfloat16) for a in _qkv(b, h, n, j, 64, kind == "mha"))
+    g = _t(np.random.default_rng(6).normal(size=q.shape).astype(np.float32)).to(cuda, torch.bfloat16)
+    bias = _t(_mask_bias_np(b, j)).to(cuda) if with_bias else None
+    _check_forward_backward(kind, torch.bfloat16, q, k, v, g, bias)
 
 
 @pytest.mark.cuda

@@ -2,15 +2,14 @@
 of 2 processes under ZeRO-1 and under FSDP (8 synthetic items, global batch
 2, EMA, checkpoints and validation every 2 batches). Process 0 writes the
 progress log, the U-Net checkpoints (whole, which the JAX package reads)
-and the sharded full-state dump, which a restart on one device resumes; a
-restart directory that holds only a JAX Orbax dump is refused. And the
+and the sharded full-state dump, which a restart on one device resumes
+(a restart from the JAX package's Orbax dump: ``test_torch_orbax.py``). And the
 train and inference CLIs with ``--MESH data`` over 2 processes joined as
 torchrun joins them."""
 import glob
 import json
 import os
 import socket
-from types import SimpleNamespace
 
 import jax
 import numpy as np
@@ -49,8 +48,10 @@ def runs(tmp_path_factory):
     env = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(_free_port())}
     jobs["cli"] = ("torch_mesh_workers:cli_run", 2, {"cwd": str(root)},
                    dict(rendezvous="env", env=env))
+    jobs["orbax"] = ("torch_mesh_workers:orbax_scenarios", 2, {"dir": str(root / "orbax")}, {})
     results = W.start(jobs)()
-    return {mode: (dirs[mode], results[mode]) for mode in MODES} | {"cli": (str(root), results["cli"])}
+    return {mode: (dirs[mode], results[mode]) for mode in MODES} | {
+        "cli": (str(root), results["cli"]), "orbax": (str(root / "orbax"), results["orbax"])}
 
 
 def _free_port():
@@ -148,13 +149,27 @@ def test_a_restart_on_one_device_continues_the_mesh_run(runs, tmp_path, monkeypa
     assert os.path.exists(tmp_path / "training_restart" / "tmp" / ttrain.TRAIN_STATE_FILE)
 
 
-def test_an_orbax_only_restart_directory_is_refused(tmp_path):
-    os.makedirs(tmp_path / "run" / "tmp" / ttrain.ORBAX_STATE_DIR)
-    args = _args(RESTART_DIRECTORY=str(tmp_path / "run"))
-    imagen = W.cascade_imagen()
-    with pytest.raises(NotImplementedError, match="Orbax's format is not ported"):
-        ttrain.MinimagenTrain("x", args, imagen.unet_configs, imagen, [], [],
-                              SimpleNamespace())
+def test_a_mesh_states_orbax_dump_restores_on_one_device_and_on_the_mesh(runs):
+    """``save_train_state_orbax`` of a ZeRO-1 state over 2 processes: one
+    writer, the state gathered whole; a one-device state and a fresh mesh
+    state (each process its blocks) read it back equal."""
+    path, ranks = runs["orbax"]
+    assert [r["wrote"] for r in ranks] == [True, False]
+    opt = ttrain.make_optimizer(1e-3, 1, torch.bfloat16)
+    state = ttrain.create_train_state(W.cascade_imagen(), opt, ema=True)
+    ttrain.load_train_state_orbax(path, state)
+    assert state.step == state.opt_state.count == 1
+    saved = ranks[0]["saved"]
+    np.testing.assert_array_equal(
+        np.concatenate([p.detach().numpy().ravel() for p in state.params]), saved["params"])
+    np.testing.assert_array_equal(
+        np.concatenate([t.numpy().ravel() for t in state.ema_params]), saved["ema"])
+    mu = np.concatenate([t.float().numpy().ravel() for t in state.opt_state.mu])
+    for r in ranks:
+        assert r["step"] == r["count"] == 1
+        np.testing.assert_array_equal(r["mu"], mu)
+        for k in ("params", "ema"):
+            np.testing.assert_array_equal(r["loaded"][k], saved[k])
 
 
 def test_the_clis_train_and_sample_on_a_mesh(runs):

@@ -447,6 +447,27 @@ def harness_run(group, spec):
             "model_rank": mesh.model_rank, "shape": mesh.shape}
 
 
+def orbax_scenarios(group, spec):
+    """A ZeRO-1 state over the data axis (one step, bf16 first moment, EMA)
+    written by ``save_train_state_orbax`` (gathered whole, process 0
+    writes), then read back by ``load_train_state_orbax`` into a fresh
+    ZeRO-1 state (each process its blocks)."""
+    mesh = pmesh.make_mesh(group)
+    opt = ttrain.make_optimizer(1e-3, 1, torch.bfloat16)
+    run = _run("zero1", mesh, opt, 1, ema=0.9)
+    state = run.pop("state")
+    rate = ttrain.save_train_state_orbax(spec["dir"], state)
+    imagen = cascade_imagen()
+    fresh = ttrain.create_train_state(imagen, opt, ema=True, mesh=mesh,
+                                      plan=_plan("zero1", imagen, mesh))
+    ttrain.load_train_state_orbax(spec["dir"], fresh)
+    whole_mu = pmesh.full_tensors(fresh.opt_state.mu, fresh.plan, mesh, fresh.shapes)
+    return {"saved": {k: v for k, v in run.items() if k != "losses"}, "loaded": _full(fresh),
+            "mu": np.concatenate([t.float().numpy().ravel() for t in whole_mu]),
+            "step": fresh.step, "count": fresh.opt_state.count, "rank": mesh.rank,
+            "wrote": rate is not None}
+
+
 def fail_on_rank_1(group, spec=None):
     """Rank 1 raises; rank 0 waits in a collective (ended by spawn)."""
     if group.rank == 1:
