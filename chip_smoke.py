@@ -50,7 +50,7 @@ Phases, one line each with elapsed seconds; any failure exits non-zero:
    spread, beside the caching cost model's decision (repeated for the
    default cascade in 17b, after which each stage's verdict and the
    constants the runs imply are printed).
-8. a measurement, not a check: the host time of 3 guided DDIM steps per
+8. a measurement, not a check: the host time of 5 guided DDIM steps per
    stage, and a torch.profiler trace of them for the device's busy time and
    its largest kernels, and the device ms per step of each kernel family
    (the wgmma multi-query kernels, the wgmma multi-head kernels, the
@@ -83,7 +83,7 @@ Phases, one line each with elapsed seconds; any failure exits non-zero:
    1.5x the committed run's (base 0.25, SR 1.10) and below its own mean
    over steps 1-200, every loss finite, every backward kernel launched.
 13. a measurement, not a check: host ms per training step and a
-   torch.profiler trace of 2 steps, with the kernel families as in
+   torch.profiler trace of 5 steps, with the kernel families as in
    phase 8.
 13a. the harness: ``python -m minimagen_tpu_torch.train`` on the lite
    cascade at full width (a written parameters/ directory, batch 16, 512
@@ -150,8 +150,11 @@ Phases, one line each with elapsed seconds; any failure exits non-zero:
    the profile phases wrote (``build/traces/``) summarized by family.
 13g. Orbax: the JAX package's Orbax train state ``tests/data/orbax_tiny``
    (a dim-16 cascade, bf16 first moment, EMA, step 3) read without Orbax
-   (the reader's MB/s on its zstd chunks, and on the Huffman-coded float32
-   sample ``tests/data/zstd/``) and restored into
+   through the host C zstd decoder (``host/zstd_decode.c``, built at first
+   use; its MB/s on the fixture's chunks and, median of 5, on the
+   Huffman-coded float32 sample ``tests/data/zstd/``, each beside the
+   Python decoder's, taken once on one chunk and equal to it; a frame with
+   one flipped XXH64 checksum byte refused by both) and restored into
    ``MinimagenTrain`` on the card, which trains 2 bf16 steps (finite
    losses, step 3 -> 5, the attention and GroupNorm kernels launched);
    then the lite train state (0.671 GB: float32 masters, bf16 first
@@ -183,7 +186,14 @@ objects are freed:
    float32 on the card against the CPU copy (~47 GB of state there): both
    losses, the updated parameters and the EMA within 1e-3 relative L2, the
    gradients within 1e-3, and the update p - p0 of every 25th parameter
-   tensor within 1e-2 (a step that updates nothing gives 1).
+   tensor within 1e-2 (a step that updates nothing gives 1). Printed
+   besides: the gradients' 5 worst tensors by relative L2 (name, shape,
+   both norms), the 5 that carry most of the summed error, the error by
+   kind of parameter (attention q / kv / out, GroupNorm gamma / beta,
+   scale-shift linears, convolutions, the stem's patch weights, the rest).
+   The float32 backward kernels are held against float64 at this step's
+   shapes by the card tests ``test_float32_*_is_as_close_to_float64_as_the_cpu_on_card``
+   in tests/test_torch_kernels.py.
 17. serve, with the launch counts reset just before it: 4 eval captions,
    cond_scale 3.0, DDIM-50 through both stages; images finite in [0, 1],
    every forward kernel launched, peak memory.
@@ -199,6 +209,13 @@ objects are freed:
 
 The lite sampling profile (phase 8) also times the stem alone (a
 record_function range around it, and a trace of the SR stem by itself).
+
+Not run here: the URL-fetching data path (``data/dataset.py``'s
+``fetch_single_image``, ``MinimagenDataset`` and ``ConceptualCaptions``'
+HF ``datasets`` branch) decodes images with PIL, which the card's machine
+does not have (nor ``datasets``: the train CLI takes the synthetic set);
+``tests/test_torch_dataset_live.py`` holds it against the JAX package on
+the CPU.
 
 Then it prints the kernels' JSON line (attention and GroupNorm entries also
 carry ``device_ms``, attention ``library_device_ms``, GroupNorm the
@@ -1107,7 +1124,7 @@ def log_cache_fit(rows, imagen):
     return fit
 
 
-def profile_steps(imagen, captions, steps=3):
+def profile_steps(imagen, captions, steps=5):
     """Time `steps` guided DDIM steps of each stage: host time per step
     without the profiler, then device busy time per step (sum of kernel
     times in a torch.profiler trace of the same steps), the kernels that
@@ -1477,7 +1494,7 @@ def learn():
                                ms_per_step=run.host_ms_per_step)
 
 
-def profile_train(run, steps=2):
+def profile_train(run, steps=5):
     """Host ms per training step (synchronized) and a torch.profiler trace
     of `steps` steps: device busy ms per step and the largest items."""
     n_batches = run.batches["image"].shape[0]
@@ -1675,6 +1692,72 @@ def default_reference(captions):
     return results
 
 
+# the kinds of parameter the gradient breakdown sums over: (kind, name
+# pattern), the first that matches a parameter's name wins
+PARAM_KINDS = (("attention q", r"\.to_q\."), ("attention kv", r"\.to_kv\.|null_kv$"),
+               ("attention out", r"\.to_out\."), ("GroupNorm gamma", r"groupnorm\.scale$"),
+               ("GroupNorm beta", r"groupnorm\.bias$"), ("scale-shift linear", r"time_mlp\."),
+               ("stem patch weight", r"init_conv\.conv_\d+\.weight$"),
+               ("conv weights", r"(project|res_conv|conv\d*|final_conv)\.weight$"))
+WORST_TENSORS = 5
+
+
+def param_kind(name):
+    import re
+
+    for kind, pattern in PARAM_KINDS:
+        if re.search(pattern, name):
+            return kind
+    return "the rest (biases, norms, embeddings)"
+
+
+def grad_breakdown(names, sides, reference):
+    """Log the gradients' error tensor by tensor: `names` the (stage,
+    parameter name) of each tensor, `sides` {label: gradients} held against
+    `reference` (gradients on the CPU), each list in `names`' order, on any
+    device. For each side, the WORST_TENSORS worst tensors by relative L2
+    (name, shape, relative L2, both norms), the tensors that carry most of
+    the summed squared error, and the error summed by kind of parameter
+    (PARAM_KINDS). Returns {label: [(name, rel, err norm, ref norm)]}."""
+    import torch
+
+    out = {}
+    for label, grads in sides.items():
+        rows = []
+        for (stage, name), g, r in zip(names, grads, reference):
+            r64 = r.detach().to("cpu", torch.float64)
+            err = float(torch.linalg.vector_norm(g.detach().to("cpu", torch.float64) - r64))
+            ref = float(torch.linalg.vector_norm(r64))
+            rows.append((f"{stage}.{name}", tuple(r.shape), err, ref,
+                         float(torch.linalg.vector_norm(g.detach().double()))))
+        total_err = sum(e * e for _, _, e, _, _ in rows)
+        total_ref = sum(n * n for _, _, _, n, _ in rows)
+        log(f"  gradients, {label}: relative L2 "
+            f"{(total_err / total_ref) ** 0.5:.3e} over {len(rows)} tensors")
+        rel = lambda row: row[2] / row[3] if row[3] else (0.0 if not row[2] else float("inf"))  # noqa: E731
+        log(f"  the {WORST_TENSORS} worst tensors by relative L2:")
+        for row in sorted(rows, key=rel, reverse=True)[:WORST_TENSORS]:
+            log(f"    {row[0]} {row[1]}: relative L2 {rel(row):.3e}, norms {row[4]:.4e} "
+                f"(this side) / {row[3]:.4e} (reference)")
+        log(f"  the {WORST_TENSORS} tensors carrying most of the summed squared error:")
+        for row in sorted(rows, key=lambda r: r[2], reverse=True)[:WORST_TENSORS]:
+            log(f"    {row[0]} {row[1]}: {row[2] ** 2 / (total_err or 1.0):.1%} of it, relative L2 "
+                f"{rel(row):.3e}, norm {row[3]:.4e}")
+        kinds = {}
+        for row in rows:
+            k = kinds.setdefault(param_kind(row[0].split(".", 1)[1]), [0, 0.0, 0.0])
+            k[0] += 1
+            k[1] += row[2] ** 2
+            k[2] += row[3] ** 2
+        log("  by kind of parameter (tensors, relative L2 of the kind, share of the summed "
+            "squared error):")
+        for kind, (n, e2, r2) in sorted(kinds.items(), key=lambda kv: -kv[1][1]):
+            log(f"    {kind}: {n}, {(e2 / r2) ** 0.5 if r2 else 0.0:.3e}, "
+                f"{e2 / (total_err or 1.0):.1%}")
+        out[label] = [(row[0], rel(row), row[2], row[3]) for row in rows]
+    return out
+
+
 def default_train_reference():
     """One train step of the default cascade (make_train_step: both stage
     losses, one backward, clip-50 Adam, the EMA) at Base 16px and Super
@@ -1738,6 +1821,9 @@ def default_train_reference():
     missing = sum(p.grad is None for p in [*card_s.params, *cpu_s.params])
     checks += [("gradients", rel([p.grad for p in card_s.params], [p.grad for p in cpu_s.params])
                 if not missing else float("inf"), TRAIN_GRAD_LIMIT)]
+    if not missing:
+        grad_breakdown(card_s.names, {"card vs cpu float32": [p.grad for p in card_s.params]},
+                       [p.grad for p in cpu_s.params])
     for p in [*card_s.params, *cpu_s.params]:
         p.grad = None
     updates = [[s.params[k].detach().to("cpu") - p0 for k, p0 in watched.items()]
@@ -2200,7 +2286,10 @@ def run_cli(module, args, cwd):
     """``python -m minimagen_tpu_torch.<module> args`` in `cwd`; returns the
     JSON object of its last output line and its seconds. Its output goes to
     the log."""
-    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    # HF_DATASETS_OFFLINE: where `datasets` is installed, the train CLI's
+    # ConceptualCaptions takes the synthetic set at once, reaching for no hub
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               HF_DATASETS_OFFLINE="1")
     t0 = time.time()
     proc = subprocess.run([sys.executable, "-m", f"minimagen_tpu_torch.{module}", *args],
                           cwd=cwd, env=env, capture_output=True, text=True,
@@ -2973,14 +3062,29 @@ def orbax_fixture_restart():
     from minimagen_tpu_torch.models.unet import UnetConfig
     from minimagen_tpu_torch.ops import kernels
 
+    from minimagen_tpu_torch.host import zstd as host_zstd
+
     state_dir = os.path.join(ORBAX_FIXTURE, "tmp", tt.ORBAX_STATE_DIR)
+    t0 = time.perf_counter()
+    host_zstd.library()  # built at first use: outside the timed reads
+    log(f"  the host zstd decoder built and loaded in {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     leaves = orbax_format.read_checkpoint(state_dir)
     dt = time.perf_counter() - t0
     nbytes = sum(t.numel() * t.element_size() for _, _, t in leaves if t is not None)
-    log(f"  reader on the fixture's zstd chunks (as the JAX package's Orbax writes them; "
-        f"compressible values, match-heavy): {nbytes / 1e6:.3f} MB of arrays in {dt:.3f} s = "
-        f"{nbytes / 1e6 / dt:.2f} MB/s")
+    # the Python decoder once, on the fixture's largest zstd chunk
+    store = orbax_format.OcdbtReader(state_dir)
+    chunk = max((store.get(k) for k in store.keys() if not k.endswith(b".zarray")), key=len)
+    t0 = time.perf_counter()
+    plain = orbax_format.zstd_decompress(chunk, plain=True)
+    plain_dt = time.perf_counter() - t0
+    if plain != orbax_format.zstd_decompress(chunk):
+        raise PhaseError("the two zstd decoders disagree on a chunk of the fixture")
+    log(f"  the fixture's zstd chunks (as the JAX package's Orbax writes them; compressible "
+        f"values, match-heavy): read_checkpoint with the host decoder {nbytes / 1e6:.3f} MB of "
+        f"arrays in {dt:.3f} s = {nbytes / 1e6 / dt:.2f} MB/s; the Python decoder on its "
+        f"largest chunk ({len(chunk)} -> {len(plain)} bytes) {len(plain) / 1e6 / plain_dt:.2f} "
+        f"MB/s")
     huffman = zstd_sample_rates()
     spec = json.load(open(os.path.join(ORBAX_FIXTURE, "cascade.json")))
     unets = [UnetConfig(**{k: tuple(v) if isinstance(v, list) else v for k, v in u.items()})
@@ -3033,27 +3137,47 @@ def orbax_fixture_restart():
 
 
 def zstd_sample_rates():
-    """The zstd decoder's MB/s on Huffman-coded float32 (the committed
-    sample ZSTD_F32_SAMPLE: random mantissas, as a trained float32 state's)
-    and what that makes of a JAX-written lite state (LITE_STATE_GB)."""
+    """The host zstd decoder's MB/s on Huffman-coded float32 (the committed
+    sample ZSTD_F32_SAMPLE: random mantissas, as a trained float32 state's;
+    the median of 5 decodes) beside the Python decoder's (one decode), both
+    equal to the sample's recipe, and what the host decoder's rate makes of
+    a JAX-written lite state (LITE_STATE_GB); then a frame of the sample
+    with its XXH64 content checksum, one checksum byte flipped, which both
+    decoders must refuse."""
     import numpy as np
     from minimagen_tpu_torch import orbax_format
 
     frame = open(ZSTD_F32_SAMPLE, "rb").read()
     runs = []
-    for _ in range(3):
+    for _ in range(5):
         t0 = time.perf_counter()
         one = orbax_format.zstd_decompress(frame)
         runs.append(len(one) / 1e6 / (time.perf_counter() - t0))
-    rate = sorted(runs)[1]
+    rate = sorted(runs)[2]
+    t0 = time.perf_counter()
+    plain = orbax_format.zstd_decompress(frame, plain=True)
+    plain_rate = len(plain) / 1e6 / (time.perf_counter() - t0)
     w = np.frombuffer(one, np.float32)
-    log(f"  reader on Huffman-coded float32 ({len(frame) / 1e6:.3f} MB zstd -> "
-        f"{len(one) / 1e6:.3f} MB): {', '.join(f'{r:.2f}' for r in runs)} MB/s (median "
-        f"{rate:.2f}): a JAX-written lite state ({LITE_STATE_GB} GB) ~"
-        f"{LITE_STATE_GB * 1e3 / rate:.0f} s")
-    if not (w.size == 1 << 18 and np.isfinite(w).all() and 0.99 < float(w.std()) < 1.01):
-        raise PhaseError("the zstd decoder gets the float32 sample wrong")
-    return dict(huffman_mb_s=rate)
+    log(f"  Huffman-coded float32 ({len(frame) / 1e6:.3f} MB zstd -> {len(one) / 1e6:.3f} MB): "
+        f"host decoder {', '.join(f'{r:.1f}' for r in runs)} MB/s (median {rate:.1f}), Python "
+        f"decoder {plain_rate:.2f} MB/s (once): a JAX-written lite state ({LITE_STATE_GB} GB) "
+        f"~{LITE_STATE_GB * 1e3 / rate:.1f} s of decoding")
+    if not (w.size == 1 << 18 and np.isfinite(w).all() and 0.99 < float(w.std()) < 1.01
+            and plain == one):
+        raise PhaseError("a zstd decoder gets the float32 sample wrong")
+    bad = bytearray(orbax_format.zstd_frame_raw(one, checksum=True))
+    bad[-2] ^= 0x10
+    refused = []
+    for name, plain_flag in (("host", False), ("Python", True)):
+        try:
+            orbax_format.zstd_decompress(bytes(bad), plain=plain_flag)
+        except orbax_format.ZstdError as e:
+            refused.append(f"{name}: {e}")
+    log(f"  a frame with one checksum byte flipped, refused by {len(refused)} of 2 decoders: "
+        + "; ".join(refused))
+    if len(refused) != 2:
+        raise PhaseError("a decoder restores a frame whose XXH64 checksum does not match")
+    return dict(huffman_mb_s=rate, huffman_plain_mb_s=plain_rate)
 
 
 def orbax_lite_roundtrip():

@@ -1,29 +1,57 @@
-"""Datasets (counterpart of the offline parts of
-``minimagen_tpu/data/dataset.py``).
+"""Datasets (counterpart of ``minimagen_tpu/data/dataset.py``).
 
-``_draw_synthetic``, ``synthetic_combo_caption`` and ``holdout_split`` are
-copied from the JAX package and draw the same images bit for bit: numpy,
-seeded by the item's index. Captions are encoded by the port's own T5
-encoder (``models/t5.py``), one caption at a time and cached, as the JAX
-package's ``CaptionEncoder`` does.
-
-:func:`ConceptualCaptions` is the reference's dataset factory with only its
-offline branch: the synthetic set (2048 items, 16 with `smalldata`; the
-test set drawn from ``seed_offset`` 10 000), split by :func:`random_split`.
-The JAX package's HF ``datasets`` branch, ``MinimagenDataset`` and
-``fetch_single_image`` fetch images over the network and are not ported.
-:func:`rescale_image` and :func:`pil_to_array` preprocess a local image as
-they do (PIL only inside :func:`pil_to_array`'s caller).
+- :func:`fetch_single_image`, :class:`MinimagenDataset` and the HF
+  ``datasets`` branch of :func:`ConceptualCaptions`: the reference's
+  URL-fetching data path. Each item's image is fetched with urllib (the
+  JAX package's user agent, `timeout`, ``retries + 1`` attempts) and
+  decoded by PIL, imported inside :func:`fetch_single_image` only (the
+  card's machine has no PIL, so this path runs off the card); then
+  :func:`pil_to_array`, :func:`rescale_image`, the 3-channel filter, the
+  optional transform and the caption's encoding, or None where any step
+  fails. ``datasets`` is imported only inside the HF branch.
+- ``_draw_synthetic``, ``synthetic_combo_caption`` and ``holdout_split``
+  are copied from the JAX package and draw the same images bit for bit:
+  numpy, seeded by the item's index. :func:`ConceptualCaptions` falls back
+  to that synthetic set (2048 items, 16 with `smalldata`; the test set
+  drawn from ``seed_offset`` 10 000), split by :func:`random_split`, where
+  ``datasets`` or its download fails.
+- Captions are encoded by the port's own T5 encoder (``models/t5.py``) on
+  the caller's device and cached per caption (:class:`CaptionEncoder`,
+  with :meth:`CaptionEncoder.precompute` encoding many in batches), as the
+  JAX package's ``CaptionEncoder`` does.
 """
 from __future__ import annotations
 
+import io
 import os
+import urllib.request
 import warnings
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 from ..models.t5 import TextEncoder
+
+USER_AGENT = "minimagen_tpu/0.1 (dataset fetcher)"  # the JAX package's, byte for byte
+
+
+def fetch_single_image(image_url: str, timeout: Optional[float] = None, retries: int = 0):
+    """One image from `image_url` as a PIL image, or None on any failure
+    (an HTTP error, a timeout, bytes PIL cannot open), after ``retries + 1``
+    attempts; the JAX package's ``fetch_single_image``."""
+    import PIL.Image  # noqa: PLC0415 - the card's machine has no PIL
+
+    image = None
+    for _ in range(retries + 1):
+        try:
+            request = urllib.request.Request(image_url, data=None,
+                                             headers={"user-agent": USER_AGENT})
+            with urllib.request.urlopen(request, timeout=timeout) as req:
+                image = PIL.Image.open(io.BytesIO(req.read()))
+            break
+        except Exception:  # noqa: BLE001 - any failure is a missing image, as the reference's
+            image = None
+    return image
 
 _SYNTH_COLORS = {
     "red": (0.9, 0.1, 0.1), "green": (0.1, 0.8, 0.15), "blue": (0.15, 0.2, 0.9),
@@ -92,6 +120,59 @@ class CaptionEncoder:
             enc, mask = self.encoder.encode([caption], self.max_length)
             self._cache[caption] = (enc[0].cpu().numpy(), mask[0].cpu().numpy())
         return self._cache[caption]
+
+    def precompute(self, captions: List[str], batch_size: int = 64) -> None:
+        """Encode the distinct captions not cached yet, `batch_size` at a
+        time, each cached row cut to its mask's count (a batch pads to its
+        longest caption)."""
+        todo = [c for c in dict.fromkeys(captions) if c not in self._cache]
+        for i in range(0, len(todo), batch_size):
+            chunk = todo[i:i + batch_size]
+            enc, mask = self.encoder.encode(chunk, self.max_length)
+            enc, mask = enc.cpu().numpy(), mask.cpu().numpy()
+            for j, c in enumerate(chunk):
+                n = int(mask[j].sum())
+                self._cache[c] = (enc[j][:n], mask[j][:n])
+
+
+class MinimagenDataset:
+    """The reference's URL-fetching captioned-image dataset over an HF
+    ``datasets``-style mapping (``hf_dataset[split]["image_url"]`` and
+    ``["caption"]``; split "train", or "validation" without `train`). Item
+    i is {'image': (s, s, 3) float32 in [0, 1], 'encoding', 'mask'}, or
+    None where the fetch, the resize, the 3-channel filter or the
+    transform fails (the collator drops Nones). Captions are encoded on
+    `device`."""
+
+    def __init__(self, hf_dataset, *, encoder_name: str, max_length: int, side_length: int,
+                 train: bool = True, img_transform=None, fetch_timeout: Optional[float] = 10.0,
+                 fetch_retries: int = 0, device="cuda"):
+        split = "train" if train else "validation"
+        self.urls = hf_dataset[split]["image_url"]
+        self.captions = hf_dataset[split]["caption"]
+        self.side_length = side_length
+        self.img_transform = img_transform
+        self.fetch_timeout = fetch_timeout
+        self.fetch_retries = fetch_retries
+        self.encoder = CaptionEncoder(encoder_name, max_length, device)
+
+    def __len__(self):
+        return len(self.urls)
+
+    def __getitem__(self, idx: int) -> Optional[Dict[str, np.ndarray]]:
+        img = fetch_single_image(self.urls[idx], timeout=self.fetch_timeout,
+                                 retries=self.fetch_retries)
+        if img is None:
+            return None
+        arr = rescale_image(pil_to_array(img), self.side_length)
+        if arr is None or arr.shape[-1] != 3:
+            return None
+        if self.img_transform is not None:
+            arr = self.img_transform(arr)
+            if arr is None:
+                return None
+        enc, mask = self.encoder.encode(self.captions[idx])
+        return {"image": arr, "encoding": enc, "mask": mask}
 
 
 class SyntheticCaptionedImages:
@@ -198,27 +279,56 @@ def pil_to_array(img) -> np.ndarray:
     return np.asarray(img, dtype=np.float32) / 255.0
 
 
+def _split(full, args):
+    """(train, valid) of `full` at ``args.TRAIN_VALID_FRAC``, the valid part
+    cut to ``args.VALID_NUM + 1`` items when that is set."""
+    train_ds, valid_ds = random_split(full, int(args.TRAIN_VALID_FRAC * len(full)))
+    if getattr(args, "VALID_NUM", None) is not None:
+        valid_ds.indices = valid_ds.indices[:args.VALID_NUM + 1]
+    return train_ds, valid_ds
+
+
 def ConceptualCaptions(args, smalldata: bool = False, testset: bool = False, *, device="cuda"):
-    """The reference's dataset factory, offline: the synthetic set of 2048
-    items (16 with `smalldata`) at ``args.IMG_SIDE_LEN`` with captions
-    encoded by ``args.T5_NAME`` to ``args.MAX_NUM_WORDS`` tokens on `device`.
-    Returns the test set (drawn from ``seed_offset`` 10 000) if `testset`,
-    else (train, valid) split at ``args.TRAIN_VALID_FRAC``, the valid part
-    cut to ``args.VALID_NUM + 1`` items when that is set. The reference's
-    Conceptual Captions download is not ported."""
-    warnings.warn("Conceptual Captions needs the network: using the offline synthetic "
+    """The reference's dataset factory. Where HF ``datasets`` imports and
+    ``load_dataset("conceptual_captions")`` succeeds, :class:`MinimagenDataset`
+    over it (both splits cut to their first 16 rows with `smalldata`):
+    the validation split if `testset`, else the train split cut by
+    :func:`random_split`. Otherwise, with a warning, the offline synthetic
+    set of 2048 items (16 with `smalldata`), its test set drawn from
+    ``seed_offset`` 10 000. Images are ``args.IMG_SIDE_LEN`` square,
+    captions encoded by ``args.T5_NAME`` to ``args.MAX_NUM_WORDS`` tokens on
+    `device`; (train, valid) split at ``args.TRAIN_VALID_FRAC``, the valid
+    part cut to ``args.VALID_NUM + 1`` items when that is set."""
+    dset = None
+    try:
+        from datasets import load_dataset  # noqa: PLC0415 - optional, and absent on the card
+
+        dset = load_dataset("conceptual_captions")
+        if smalldata:
+            num = 16
+            dset = {split: {"image_url": dset[split]["image_url"][:num],
+                            "caption": dset[split]["caption"][:num]}
+                    for split in ("train", "validation")}
+    except Exception:  # noqa: BLE001 - no package, no network, no data: the offline set
+        dset = None
+
+    if dset is not None:
+        def make(train: bool) -> MinimagenDataset:
+            return MinimagenDataset(dset, max_length=args.MAX_NUM_WORDS,
+                                    encoder_name=args.T5_NAME, side_length=args.IMG_SIDE_LEN,
+                                    train=train, device=device)
+
+        return make(False) if testset else _split(make(True), args)
+
+    warnings.warn("HF `datasets`/network unavailable: using the offline synthetic "
                   "captioned-image set (deterministic shapes + captions).", stacklevel=2)
     num = 16 if smalldata else 2048
 
-    def make(offset: int, n: int) -> SyntheticCaptionedImages:
+    def make_synth(offset: int, n: int) -> SyntheticCaptionedImages:
         return SyntheticCaptionedImages(num_items=n, side_length=args.IMG_SIDE_LEN,
                                         encoder_name=args.T5_NAME, max_length=args.MAX_NUM_WORDS,
                                         seed_offset=offset, device=device)
 
     if testset:
-        return make(10_000, num)
-    full = make(0, num)
-    train_ds, valid_ds = random_split(full, int(args.TRAIN_VALID_FRAC * len(full)))
-    if getattr(args, "VALID_NUM", None) is not None:
-        valid_ds.indices = valid_ds.indices[:args.VALID_NUM + 1]
-    return train_ds, valid_ds
+        return make_synth(10_000, num)
+    return _split(make_synth(0, num), args)

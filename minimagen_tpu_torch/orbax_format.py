@@ -5,13 +5,16 @@
 an OCDBT key-value database (tensorstore's "optionally-cooperative
 distributed B+tree") whose values are zarr v2 arrays compressed with zstd.
 The card's machine has none of orbax, tensorstore or a zstd library, so this
-module reads and writes that layout itself, in Python with numpy:
+module reads and writes that layout itself, in Python with numpy and one
+host C file:
 
-- :func:`zstd_decompress`, a zstd decoder written from RFC 8878 (frames,
-  skippable frames, Raw / RLE / Compressed blocks, Huffman-coded literals
-  in 1 or 4 streams and treeless ones, FSE-coded sequences in predefined,
-  RLE, compressed and repeat modes), and :func:`zstd_frame_raw`, a valid
-  frame of Raw blocks for the writer;
+- :func:`zstd_decompress`, zstd (RFC 8878: frames, skippable frames, Raw /
+  RLE / Compressed blocks, Huffman-coded literals in 1 or 4 streams and
+  treeless ones, FSE-coded sequences in predefined, RLE, compressed and
+  repeat modes, each frame's XXH64 content checksum verified) decoded by
+  the host C decoder ``host/zstd_decode.c``, or with ``plain=True`` by this
+  module's Python + numpy decoder, its plain version; and
+  :func:`zstd_frame_raw`, a valid frame of Raw blocks for the writer;
 - :class:`OcdbtReader`, which lists every key of a database and returns each
   value, and :func:`write_ocdbt`, which writes one database with one
   process's sub-database as Orbax lays it out;
@@ -54,10 +57,13 @@ import os
 import struct
 import time
 import uuid as _uuid
-from typing import Dict, Iterable, List, Mapping, Optional, Sequence, Tuple
+from typing import Dict, Iterable, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+
+from .host import zstd as _host_zstd
+from .host.zstd import ZstdError
 
 # --------------------------------------------------------------------------- #
 # zstd (RFC 8878)                                                             #
@@ -78,8 +84,53 @@ _ML_BASE = tuple(range(3, 35)) + (35, 37, 39, 41, 43, 47, 51, 59, 67, 83, 99, 13
 _ML_BITS = (0,) * 32 + (1, 1, 1, 1, 2, 2, 3, 3, 4, 4, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16)
 
 
-class ZstdError(ValueError):
-    """Input that is no valid zstd data, or uses what this decoder refuses."""
+_M64 = (1 << 64) - 1
+_XXH_P1, _XXH_P2, _XXH_P3 = 0x9E3779B185EBCA87, 0xC2B2AE3D27D4EB4F, 0x165667B19E3779F9
+_XXH_P4, _XXH_P5 = 0x85EBCA77C2B2AE63, 0x27D4EB2F165667C5
+
+
+def _rotl(x: int, r: int) -> int:
+    return ((x << r) | (x >> (64 - r))) & _M64
+
+
+def _xxh_round(acc: int, lane: int) -> int:
+    return _rotl((acc + lane * _XXH_P2) & _M64, 31) * _XXH_P1 & _M64
+
+
+def xxh64(data, seed: int = 0) -> int:
+    """XXH64 of `data` in Python (the plain decoder's checksum)."""
+    data = bytes(data)
+    n = len(data)
+    stripes = n // 32
+    lanes = np.frombuffer(data, "<u8", count=n // 8).tolist()
+    if stripes:
+        v = [(seed + _XXH_P1 + _XXH_P2) & _M64, (seed + _XXH_P2) & _M64, seed & _M64,
+             (seed - _XXH_P1) & _M64]
+        for i in range(0, 4 * stripes, 4):
+            v[0] = _xxh_round(v[0], lanes[i])
+            v[1] = _xxh_round(v[1], lanes[i + 1])
+            v[2] = _xxh_round(v[2], lanes[i + 2])
+            v[3] = _xxh_round(v[3], lanes[i + 3])
+        h = (_rotl(v[0], 1) + _rotl(v[1], 7) + _rotl(v[2], 12) + _rotl(v[3], 18)) & _M64
+        for x in v:
+            h = ((h ^ _xxh_round(0, x)) * _XXH_P1 + _XXH_P4) & _M64
+    else:
+        h = (seed + _XXH_P5) & _M64
+    h = (h + n) & _M64
+    for lane in lanes[4 * stripes:]:
+        h = (_rotl(h ^ _xxh_round(0, lane), 27) * _XXH_P1 + _XXH_P4) & _M64
+    p = 8 * (n // 8)
+    if p + 4 <= n:
+        h = (_rotl(h ^ (int.from_bytes(data[p:p + 4], "little") * _XXH_P1 & _M64), 23)
+             * _XXH_P2 + _XXH_P3) & _M64
+        p += 4
+    for b in data[p:]:
+        h = _rotl(h ^ (b * _XXH_P5 & _M64), 11) * _XXH_P1 & _M64
+    h ^= h >> 33
+    h = h * _XXH_P2 & _M64
+    h ^= h >> 29
+    h = h * _XXH_P3 & _M64
+    return h ^ (h >> 32)
 
 
 class _BackwardBits:
@@ -538,16 +589,26 @@ def _frame(data, pos: int) -> Tuple[bytes, int]:
             raise ZstdError("reserved block type")
         if last:
             break
-    if checksum:
-        pos += 4  # XXH64 of the content: not verified
     if content_size is not None and len(out) != content_size:
         raise ZstdError(f"frame holds {len(out)} bytes, its header says {content_size}")
+    if checksum:
+        if pos + 4 > len(data):
+            raise ZstdError("truncated content checksum")
+        if xxh64(out) & 0xFFFFFFFF != int.from_bytes(bytes(data[pos:pos + 4]), "little"):
+            raise ZstdError("the frame's XXH64 content checksum does not match its content")
+        pos += 4
     return bytes(out), pos
 
 
-def zstd_decompress(data) -> bytes:
+def zstd_decompress(data, size: Optional[int] = None, *,
+                    plain: bool = False) -> Union[bytes, bytearray]:
     """The content of zstd `data`: one or more frames, skippable frames
-    skipped. Content checksums are read but not verified."""
+    skipped, each frame's content checksum verified. The host C decoder
+    (``host/zstd.py``; `size`, the content's length where known, sizes its
+    output) decodes it; ``plain=True`` takes this module's Python decoder
+    instead."""
+    if not plain:
+        return _host_zstd.decompress(data, size)
     data = memoryview(bytes(data)) if not isinstance(data, (bytes, bytearray)) else data
     parts, pos = [], 0
     while pos < len(data):
@@ -565,25 +626,29 @@ def zstd_decompress(data) -> bytes:
     return b"".join(parts)
 
 
-def zstd_frame_raw(data) -> bytes:
+def zstd_frame_raw(data, checksum: bool = False) -> bytes:
     """`data` as one zstd frame of Raw blocks (at most 128 KiB each), with
-    its content size and no checksum."""
+    its content size and, where `checksum`, the XXH64 content checksum
+    (the host decoder's XXH64)."""
     data = bytes(data)
     n = len(data)
+    flag = 4 if checksum else 0
     if n < 256:
-        header = bytes([0x20, n])  # single segment, 1-byte content size
+        header = bytes([0x20 | flag, n])  # single segment, 1-byte content size
     elif n < 65536 + 256:
-        header = bytes([0x60]) + (n - 256).to_bytes(2, "little")
+        header = bytes([0x60 | flag]) + (n - 256).to_bytes(2, "little")
     elif n < 1 << 32:
-        header = bytes([0xA0]) + n.to_bytes(4, "little")
+        header = bytes([0xA0 | flag]) + n.to_bytes(4, "little")
     else:
-        header = bytes([0xE0]) + n.to_bytes(8, "little")
+        header = bytes([0xE0 | flag]) + n.to_bytes(8, "little")
     parts = [ZSTD_MAGIC.to_bytes(4, "little"), header]
     for start in range(0, max(n, 1), _BLOCK_MAX):
         size = min(_BLOCK_MAX, n - start)
         last = start + _BLOCK_MAX >= n
         parts.append(((size << 3) | int(last)).to_bytes(3, "little"))
         parts.append(data[start:start + size])
+    if checksum:
+        parts.append((_host_zstd.xxh64(data) & 0xFFFFFFFF).to_bytes(4, "little"))
     return b"".join(parts)
 
 
@@ -682,7 +747,7 @@ def _decode_file(raw: bytes, magic: int, what: str) -> bytes:
     if version != 0 or compression not in (0, 1):
         raise ValueError(f"OCDBT: {what} has format version {version}, compression {compression}")
     body = raw[c.pos:-4]
-    return zstd_decompress(body) if compression else body
+    return bytes(zstd_decompress(body)) if compression else body
 
 
 def _encode_file(body: bytes, magic: int) -> bytes:
@@ -878,11 +943,12 @@ _ZARR_DTYPES = {"<f4": np.float32, "<i4": np.int32, "bfloat16": np.uint16}
 _TORCH_ZARR = {torch.float32: "<f4", torch.int32: "<i4", torch.bfloat16: "bfloat16"}
 
 
-def read_zarr(store: OcdbtReader, name: str) -> torch.Tensor:
+def read_zarr(store: OcdbtReader, name: str, *, plain: bool = False) -> torch.Tensor:
     """The zarr v2 array `name` of `store` as a CPU tensor: its chunks put
     together on the chunk grid, each decompressed by the ``compressor``
-    named (``zstd`` or none), missing chunks at ``fill_value``. A
-    ``bfloat16`` array comes back as torch.bfloat16."""
+    named (``zstd`` or none; the host decoder, or the Python one where
+    `plain`), missing chunks at ``fill_value``. A ``bfloat16`` array comes
+    back as torch.bfloat16."""
     raw = store.get(f"{name}/.zarray")
     if raw is None:
         raise KeyError(f"no zarr array {name!r}")
@@ -898,7 +964,7 @@ def read_zarr(store: OcdbtReader, name: str) -> torch.Tensor:
     fill = meta.get("fill_value")
     if meta["dtype"] == "bfloat16" and isinstance(fill, (int, float)) and fill:
         fill = int(np.float32(fill).view(np.uint32) >> 16)
-    out = np.full(shape, 0 if fill is None else fill, dtype)
+    out = None
     grid = [-(-s // c) for s, c in zip(shape, chunks)]
     for idx in np.ndindex(*grid):
         key = f"{name}/{sep.join(map(str, idx)) if idx else '0'}"
@@ -906,11 +972,18 @@ def read_zarr(store: OcdbtReader, name: str) -> torch.Tensor:
         if data is None:
             continue
         if comp == "zstd":
-            data = zstd_decompress(data)
+            data = zstd_decompress(data, int(np.prod(chunks)) * dtype.itemsize, plain=plain)
         chunk = np.frombuffer(data, dtype).reshape(chunks)
+        if chunks == shape and chunk.flags.writeable:
+            out = chunk  # the one chunk is the whole array, in the decoder's own buffer
+            continue
+        if out is None:
+            out = np.full(shape, 0 if fill is None else fill, dtype)
         lo = [i * c for i, c in zip(idx, chunks)]
         sl = tuple(slice(a, min(a + c, s)) for a, c, s in zip(lo, chunks, shape))
         out[sl] = chunk[tuple(slice(0, s.stop - s.start) for s in sl)]
+    if out is None:
+        out = np.full(shape, 0 if fill is None else fill, dtype)
     t = torch.from_numpy(out)
     return t.view(torch.bfloat16) if meta["dtype"] == "bfloat16" else t
 
@@ -941,10 +1014,12 @@ _HANDLER = "orbax.checkpoint._src.handlers.standard_checkpoint_handler.StandardC
 Leaf = Tuple[Tuple[str, ...], Tuple[int, ...], Optional[torch.Tensor]]
 
 
-def read_checkpoint(directory: str) -> List[Leaf]:
+def read_checkpoint(directory: str, *, plain: bool = False) -> List[Leaf]:
     """Every leaf of the checkpoint in `directory`, in ``_METADATA``'s
     order: (keys, key types, CPU tensor), the tensor None where the tree
-    holds no array (None, or an empty optimizer state)."""
+    holds no array (None, or an empty optimizer state). The arrays' zstd
+    chunks go through the host decoder (its build failing raises), or the
+    Python one where `plain`."""
     meta = json.load(open(os.path.join(directory, METADATA_FILE)))
     if meta.get("use_zarr3") or not meta.get("use_ocdbt", True):
         raise ValueError(f"{directory}: only zarr v2 arrays in OCDBT are read (Orbax's default)")
@@ -955,7 +1030,8 @@ def read_checkpoint(directory: str) -> List[Leaf]:
         types = tuple(int(k["key_type"]) for k in entry["key_metadata"])
         value = entry["value_metadata"]
         skip = value.get("skip_deserialize") or value.get("value_type") == "None"
-        leaves.append((keys, types, None if skip else read_zarr(store, ".".join(keys))))
+        leaves.append((keys, types,
+                       None if skip else read_zarr(store, ".".join(keys), plain=plain)))
     return leaves
 
 

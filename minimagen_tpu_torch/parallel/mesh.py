@@ -538,6 +538,19 @@ def full_tensors(tensors: Sequence[torch.Tensor], plan: Optional[Plan],
     return out
 
 
+def leaf_norms(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Each tensor's L2 norm, float32, stacked. On the CPU each sum of
+    squares is taken in float64: torch's float32 CPU reduction loses
+    precision as a tensor grows, far past optax's float32 norm at the
+    default cascade's 66M-element kernels, and the clip takes its factor
+    from these norms. On the card ``_foreach_norm``."""
+    tensors = list(tensors)
+    if tensors and tensors[0].device.type == "cpu":
+        return torch.stack([torch.linalg.vector_norm(t, dtype=torch.float64)
+                            for t in tensors]).float()
+    return torch.stack([n.float() for n in torch._foreach_norm(tensors)])
+
+
 def global_norm_fn(plan: Plan, mesh: Mesh, default):
     """The clip's global norm over (local) gradients: `default` (the
     one-device formula) where no leaf is sharded, else the square root of
@@ -550,7 +563,7 @@ def global_norm_fn(plan: Plan, mesh: Mesh, default):
         return default
 
     def norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
-        norms = torch.stack([t.float() for t in torch._foreach_norm(list(grads))]).square()
+        norms = leaf_norms(grads).square()
         zero = torch.zeros_like(norms)
         by_data = torch.tensor(sharded, device=norms.device)
         if not any(split):

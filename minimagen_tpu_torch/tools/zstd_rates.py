@@ -1,12 +1,13 @@
-"""The zstd decoder's MB/s on this host, in threads and in processes.
+"""The zstd decoders' MB/s on this host, in threads and in processes.
 
 Decodes ``tests/data/zstd/normal_f32_level1.zst`` (seeded float32 at zstd
 level 1: Huffman-coded literals, as trained float32 weights give) 16 times
-in pools of 1, 2, 4 and 8 threads and of 8 processes, and reads the
-committed Orbax fixture ``tests/data/orbax_tiny`` (compressible, match-heavy
-chunks) leaf by leaf, in one thread and in 8. Once before torch touches the
-card and once after, where there is one. One JSON line per pass. Run from
-the repository's root::
+with the host C decoder in pools of 1, 2, 4 and 8 threads (ctypes lets go
+of the GIL during a call) and of 8 processes, and once with the Python
+decoder; and reads the committed Orbax fixture ``tests/data/orbax_tiny``
+(compressible, match-heavy chunks) leaf by leaf, in one thread and in 8.
+Once before torch touches the card and once after, where there is one. One
+JSON line per pass. Run from the repository's root::
 
     python -m minimagen_tpu_torch.tools.zstd_rates
 """
@@ -38,6 +39,9 @@ def rates() -> dict:
         t0 = time.perf_counter()
         outs = list(pool.map(of.zstd_decompress, [frame] * 16))
         out["processes8"] = 16 * len(outs[0]) / 1e6 / (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    one = of.zstd_decompress(frame, plain=True)
+    out["python_decoder"] = len(one) / 1e6 / (time.perf_counter() - t0)
     t0 = time.perf_counter()
     leaves = of.read_checkpoint(FIXTURE)
     dt = time.perf_counter() - t0

@@ -140,9 +140,10 @@ class ClippedAdam:
 
     @staticmethod
     def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
-        """The float32 norm over every gradient, without a host sync."""
-        return torch.linalg.vector_norm(torch.stack(
-            [n.float() for n in torch._foreach_norm(list(grads))]))
+        """The float32 norm over every gradient, without a host sync (each
+        tensor's norm by :func:`parallel.mesh.leaf_norms`: float64 sums on
+        the CPU)."""
+        return torch.linalg.vector_norm(pmesh.leaf_norms(grads))
 
     def clip_grads(self, grads: List[torch.Tensor],
                    norm: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -596,22 +597,23 @@ class LiteRun:
 
 
 def train_lite(steps: int, batch: int = 16, *, items: int = 512, seed: int = 0,
-               mu_dtype: Optional[torch.dtype] = None, device="cuda") -> LiteRun:
+               mu_dtype: Optional[torch.dtype] = None, dtype: torch.dtype = torch.bfloat16,
+               device="cuda") -> LiteRun:
     """Train the lite cascade from a fresh flax-style init (from `seed`) for
     `steps` steps with the committed run's recipe (``assets/lite_ckpt/
     meta.json``): the synthetic set without its held-out combos, `items`
     items staged once as items // batch batches and cycled in order,
     clip-50 Adam at its lr, its EMA decay, float32 master parameters and
-    bf16 compute. Adam's first moment is in `mu_dtype` (default float32; the
-    committed run kept it in bf16). Returns the per-step losses of both
-    stages."""
+    compute in `dtype` (bf16, as the committed run). Adam's first moment is
+    in `mu_dtype` (default float32; the committed run kept it in bf16).
+    Returns the per-step losses of both stages."""
     with open(os.path.join(LITE_CKPT_DIR, "meta.json")) as f:
         config = json.load(f)["config"]
     held = set(config["held_combos"])
     combos = [i for i in range(18) if i not in held]
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        imagen = lite_imagen(config["encoder"], dtype=torch.bfloat16, param_dtype=torch.float32,
+        imagen = lite_imagen(config["encoder"], dtype=dtype, param_dtype=torch.float32,
                              device=device)
     stacked = stage_batches(items, batch, imagen.image_sizes[-1], config["max_length"],
                             config["encoder"], combos=combos, device=device)
@@ -1206,18 +1208,22 @@ def window_means(losses: np.ndarray, width: int = 200) -> List[List[float]]:
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     """``python -m minimagen_tpu_torch.training [--steps 400] [--seed 0]
-    [--mu-dtype f32|bf16]``: run :func:`train_lite` and print one JSON line
-    with the seed, Adam's first-moment dtype, each stage's mean loss over
-    every 200-step window and the host ms per step."""
+    [--mu-dtype f32|bf16] [--dtype bf16|f32]``: run :func:`train_lite` and
+    print one JSON line with the seed, Adam's first-moment dtype, the
+    compute dtype, each stage's mean loss over every 200-step window and
+    the host ms per step."""
     import argparse
 
     p = argparse.ArgumentParser(description=main.__doc__)
     p.add_argument("--steps", type=int, default=400)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--mu-dtype", choices=["f32", "bf16"], default="f32")
+    p.add_argument("--dtype", choices=["bf16", "f32"], default="bf16")
     args = p.parse_args(argv)
-    run = train_lite(args.steps, seed=args.seed, mu_dtype=MU_DTYPES[args.mu_dtype])
+    run = train_lite(args.steps, seed=args.seed, mu_dtype=MU_DTYPES[args.mu_dtype],
+                     dtype=torch.float32 if args.dtype == "f32" else torch.bfloat16)
     print(json.dumps({"seed": args.seed, "steps": args.steps, "mu_dtype": args.mu_dtype,
+                      "dtype": args.dtype,
                       "finite": bool(np.isfinite(run.losses).all()),
                       "window_means": window_means(run.losses),
                       "host_ms_per_step": run.host_ms_per_step}), flush=True)

@@ -38,8 +38,11 @@ def _few_threads():
 def demo_dir(tmp_path_factory):
     """The demo CLI's working directory after one run."""
     cwd = tmp_path_factory.mktemp("demo")
+    # HF_DATASETS_OFFLINE: the train CLI's ConceptualCaptions takes the
+    # offline set at once instead of first trying the hub where `datasets`
+    # is installed
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""),
-               OMP_NUM_THREADS="2")
+               OMP_NUM_THREADS="2", HF_DATASETS_OFFLINE="1")
     subprocess.run([sys.executable, "-m", "minimagen_tpu_torch.main", "--DEVICE", "cpu"],
                    cwd=cwd, env=env, check=True, timeout=600, capture_output=True)
     return cwd
@@ -71,7 +74,22 @@ def test_inference_cli_pixels_are_the_samples(demo_dir, monkeypatch):
     np.testing.assert_array_equal(to_uint8(direct.numpy()), pixels)
 
 
+def _offline_datasets(monkeypatch):
+    """A ``datasets`` module whose ``load_dataset`` raises, as without a
+    network: the train CLI takes the offline set at once."""
+    import types
+
+    mod = types.ModuleType("datasets")
+
+    def load_dataset(name):
+        raise ConnectionError("offline")
+
+    mod.load_dataset = load_dataset
+    monkeypatch.setitem(sys.modules, "datasets", mod)
+
+
 def test_train_cli_restarts_at_the_dumped_step(demo_dir, monkeypatch, capsys):
+    _offline_datasets(monkeypatch)
     monkeypatch.chdir(demo_dir)
     (run,) = glob.glob("training_*")
     summary = ttrain_cli.main(["-test", "-rd", run, "-ts", "restart", "-e", "1", "--DEVICE", "cpu"])

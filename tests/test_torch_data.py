@@ -71,11 +71,28 @@ def test_collator_drops_failed_items():
     assert tcollate.get_minimagen_dl_opts().keys() == jcollate.get_minimagen_dl_opts().keys()
 
 
-def test_random_split_and_offline_conceptual_captions_match_jax():
+def _offline_datasets(monkeypatch):
+    """A ``datasets`` module whose ``load_dataset`` raises, as without a
+    network: ``ConceptualCaptions`` takes its offline branch at once
+    (the installed package would first try to reach the hub)."""
+    import sys
+    import types
+
+    mod = types.ModuleType("datasets")
+
+    def load_dataset(name):
+        raise ConnectionError("offline")
+
+    mod.load_dataset = load_dataset
+    monkeypatch.setitem(sys.modules, "datasets", mod)
+
+
+def test_random_split_and_offline_conceptual_captions_match_jax(monkeypatch):
     """``random_split`` orders equal the JAX package's; ``ConceptualCaptions``
     builds the JAX package's offline branch: its synthetic set split and cut
     the same way (the JAX factory itself is not called here: it tries the
     network first)."""
+    _offline_datasets(monkeypatch)
     ours_ds, ref_ds = _pair(n=20)
     for size in (0, 7, 20):
         a, b = tdata.random_split(ours_ds, size, seed=3), jdata.random_split(ref_ds, size, seed=3)

@@ -351,6 +351,73 @@ def test_float32_attention_at_path_and_edge_shapes_on_card(cuda, kind, b, h, n, 
     _check_forward_backward(kind, torch.float32, q, k, v, g, bias)
 
 
+# the default cascade's float32 train step at Base 16px / Super 32px, batch
+# 2 (chip_smoke.py phase 16a): the backward calls whose card / CPU distance
+# from float64 was largest when every float32 backward call of that step was
+# held against float64 (PERF.md §6): attention (kind, b, h, n, j, bias) and
+# GroupNorm (b, h, w, c) at 8 groups with the time scale-shift and SiLU
+F64_ATTENTION_CASES = [("mha", 2, 8, 64, 259, True), ("mha", 2, 8, 16, 259, True),
+                       ("mqa", 2, 8, 64, 65, False), ("mqa", 2, 8, 16, 17, False)]
+F64_GROUP_NORM_CASES = [(2, 32, 32, 128), (2, 4, 4, 512)]
+F64_FACTOR = 10.0  # a kernel more than this much farther from float64 than the CPU is at fault
+
+
+def _rel64(got, ref64):
+    return float((got.detach().cpu().double() - ref64).norm() / ref64.norm())
+
+
+def _against_float64(outputs, plain, args, **kw):
+    """Each output's relative L2 from `plain` on the CPU in float64, and the
+    float32 plain version's on the CPU, for the same (card) inputs."""
+    cpu = lambda t, dt=None: None if t is None else t.detach().to("cpu", dt)  # noqa: E731
+    ref = plain(*(cpu(t, torch.float64) for t in args), **kw)
+    f32 = plain(*(cpu(t) for t in args), **kw)
+    return [(_rel64(o, r), _rel64(c, r)) for o, c, r in zip(outputs, f32, ref) if r is not None]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,b,h,n,j,with_bias", F64_ATTENTION_CASES)
+def test_float32_attention_backward_is_as_close_to_float64_as_the_cpu_on_card(
+        cuda, kind, b, h, n, j, with_bias):
+    """The 3xTF32 backward's dq, dk, dv at the default train step's shapes:
+    relative L2 from the plain version in float64 within F64_FACTOR of the
+    float32 plain version's on the CPU."""
+    q, k, v = (_t(a).to(cuda) for a in _qkv(b, h, n, j, 64, kind == "mha"))
+    g = _t(np.random.default_rng(6).normal(size=q.shape).astype(np.float32)).to(cuda)
+    bias = _t(_mask_bias_np(b, j)).to(cuda) if with_bias else None
+    out, lse = tflash.attention_forward_kernel(kind, q, k, v, bias, with_lse=True)
+    grads = tflash.attention_backward_kernel(kind, q, k, v, bias, out, g, lse)
+    torch.cuda.synchronize()
+    rels = _against_float64(grads, tflash._PLAIN[kind][1], (q, k, v, g, bias))
+    for name, (card, cpu) in zip(("dq", "dk", "dv"), rels):
+        print(f"{kind} {(b, h, n, j)} {name}: card {card:.3e}, cpu float32 {cpu:.3e} "
+              f"from float64 (ratio {card / cpu:.2f})")
+        assert card <= F64_FACTOR * cpu, (name, card, cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", F64_GROUP_NORM_CASES)
+def test_float32_group_norm_backward_is_as_close_to_float64_as_the_cpu_on_card(cuda, shape):
+    """dx, dgamma, dbeta, dscale and dshift at the default train step's
+    shapes: relative L2 from the plain closed form in float64 (the same
+    statistics) within F64_FACTOR of the float32 plain version's on the
+    CPU."""
+    x, gamma, beta, ss = _gn_inputs(*shape)
+    scale, shift = (_t(a).to(cuda) for a in ss)
+    x, gamma, beta = _t(x).to(cuda), _t(gamma).to(cuda), _t(beta).to(cuda)
+    g = _t(np.random.default_rng(9).normal(size=shape).astype(np.float32)).to(cuda)
+    kw = dict(groups=8, silu=True)
+    _, mean, rstd = tgn.group_norm_forward_kernel(x, gamma, beta, scale, shift, eps=1e-5, **kw)
+    got = tgn.group_norm_backward_kernel(x, gamma, beta, scale, shift, mean, rstd, g, **kw)
+    torch.cuda.synchronize()
+    rels = _against_float64(got, tgn.group_norm_silu_bwd_plain,
+                            (x, gamma, beta, scale, shift, mean, rstd, g), **kw)
+    for name, (card, cpu) in zip(("dx", "dgamma", "dbeta", "dscale", "dshift"), rels):
+        print(f"GroupNorm {shape} {name}: card {card:.3e}, cpu float32 {cpu:.3e} "
+              f"from float64 (ratio {card / cpu:.2f})")
+        assert card <= F64_FACTOR * cpu, (name, card, cpu)
+
+
 # bf16 shapes whose rows per q-batch are no multiple of 4 (multi-query h * n,
 # multi-head n): the dk/dv pass's lse and D boxes start 16-byte aligned only
 # through the backward's rows-rounded-to-32 layout

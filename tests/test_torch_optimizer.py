@@ -128,3 +128,19 @@ def test_none_gradients_count_as_zero():
     ttx.step(ps, st)
     assert st.count == 1 and torch.equal(ps[1].detach(), torch.ones(2))
     assert not st.mu[1].any() and float(ps[0][0]) < 1.0
+
+
+def test_global_norm_on_the_cpu_is_as_exact_as_optaxs_on_a_large_tensor():
+    """The clip's norm over a 2^24-element gradient (the default cascade
+    has 66M-element kernels) and two small ones, on the CPU: within 1e-6
+    relative of the float64 norm, as optax's global_norm is. torch's own
+    float32 CPU norm drifts low at this size, which put the CPU's clipped
+    gradients of the default cascade off the card's by the clip factor."""
+    rng = np.random.default_rng(21)
+    grads = [(rng.standard_normal(1 << 24) * 1e-3).astype(np.float32),
+             rng.standard_normal(7).astype(np.float32), rng.standard_normal((3, 5)).astype(np.float32)]
+    want = float(np.sqrt(sum(float(np.sum(g.astype(np.float64) ** 2)) for g in grads)))
+    ref = float(optax.global_norm([jnp.asarray(g) for g in grads]))
+    ours = float(ttrain.ClippedAdam.global_norm([torch.from_numpy(g) for g in grads]))
+    assert abs(ref - want) <= 1e-6 * want
+    assert abs(ours - want) <= 1e-6 * want

@@ -138,6 +138,105 @@ def test_zstd_decompress_refuses_a_dictionary():
         of.zstd_decompress(frame)
 
 
+@pytest.mark.parametrize("kind,size", ZSTD_CASES)
+@pytest.mark.parametrize("level", [1, 3, 9, 19, -5])
+def test_plain_zstd_decoder_matches_zstandard(level, kind, size):
+    """The Python decoder, the host decoder's plain version, on the same
+    corpus as ``test_zstd_decompress_matches_zstandard``."""
+    data = _content(kind, size)
+    frame = zstandard.ZstdCompressor(level=level).compress(data)
+    assert of.zstd_decompress(frame, plain=True) == data
+
+
+@pytest.mark.parametrize("form", ["frames", "checksum", "no_content_size"])
+@pytest.mark.parametrize("plain", [False, True], ids=["host", "python"])
+def test_both_decoders_read_frame_forms_with_checksums(form, plain):
+    """As ``test_zstd_decompress_frame_forms``, every frame with its XXH64
+    content checksum, which each decoder verifies."""
+    a, b = _content("text", 300_000), _content("f32", 70_000)
+    c = zstandard.ZstdCompressor(level=3, write_checksum=True,
+                                 write_content_size=form != "no_content_size")
+    if form == "frames":
+        skip = (0x184D2A53).to_bytes(4, "little") + (5).to_bytes(4, "little") + b"12345"
+        data, want = c.compress(a) + skip + c.compress(b), a + b
+    else:
+        data, want = c.compress(a), a
+    assert zstandard.get_frame_parameters(data).has_checksum
+    assert of.zstd_decompress(data, plain=plain) == want
+
+
+@pytest.mark.parametrize("where", ["checksum", "content"])
+@pytest.mark.parametrize("plain", [False, True], ids=["host", "python"])
+def test_a_corrupt_frame_with_a_checksum_is_refused(where, plain):
+    """One flipped bit in a frame's XXH64 checksum, or in the content of
+    its Raw block (the frame's structure intact), raises ZstdError in both
+    decoders: a corrupt chunk that carries a checksum never restores."""
+    data = _content("random", 5000)
+    for frame in (of.zstd_frame_raw(data, checksum=True),
+                  zstandard.ZstdCompressor(level=3, write_checksum=True).compress(data)):
+        assert of.zstd_decompress(frame, plain=plain) == data
+        bad = bytearray(frame)
+        bad[-3 if where == "checksum" else len(frame) // 2] ^= 0x08
+        with pytest.raises(of.ZstdError, match="checksum"):
+            of.zstd_decompress(bytes(bad), plain=plain)
+
+
+# XXH64 with seed 0 (the reference implementation's published values)
+XXH64_KNOWN = {b"": 0xEF46DB3751D8E999, b"a": 0xD24EC4F1A98C6E5B, b"abc": 0x44BC2CF5AD770999}
+
+
+@pytest.mark.parametrize("plain", [False, True], ids=["host", "python"])
+def test_xxh64_matches_known_values_and_the_other_decoder(plain):
+    from minimagen_tpu_torch.host import zstd as host_zstd
+
+    xxh = of.xxh64 if plain else host_zstd.xxh64
+    for data, want in XXH64_KNOWN.items():
+        assert xxh(data) == want
+    rng = np.random.default_rng(3)
+    for n in [*range(0, 70), 1000, 4099]:
+        data = rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+        assert of.xxh64(data) == host_zstd.xxh64(data)
+
+
+def test_both_decoders_read_the_committed_sample_and_fixture_alike():
+    """The Huffman-coded float32 sample decodes to its recipe in both
+    decoders, and ``read_checkpoint`` of the committed fixture gives equal
+    bits through either."""
+    frame = open(ZSTD_F32_SAMPLE, "rb").read()
+    assert of.zstd_decompress(frame, plain=True) == of.zstd_decompress(frame) == zstd_f32_sample()
+    sub = os.path.join(FIXTURE, "tmp", ttrain.ORBAX_STATE_DIR)
+    host, plain = of.read_checkpoint(sub), of.read_checkpoint(sub, plain=True)
+    assert [k for k, _, _ in host] == [k for k, _, _ in plain]
+    for (k, _, a), (_, _, b) in zip(host, plain):
+        assert (a is None) == (b is None), k
+        if a is not None:
+            assert a.dtype == b.dtype and torch.equal(a, b), k
+
+
+def test_the_host_decoder_builds_under_build_named_by_its_hash(tmp_path, monkeypatch):
+    """The library sits in the checkout's gitignored build/minimagen_tpu_torch/,
+    named by a hash of the source and flags; a source that does not
+    compile raises ZstdBuildError, and read_checkpoint raises with it
+    rather than falling back to the Python decoder."""
+    from minimagen_tpu_torch.host import zstd as host_zstd
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    path = host_zstd.library_path()
+    assert os.path.dirname(path) == os.path.join(root, "build", "minimagen_tpu_torch")
+    host_zstd.library()
+    assert os.path.exists(path)
+    broken = tmp_path / "broken.c"
+    broken.write_text("int mmt_zstd_decompress(void) { return; }\n  this is not C\n")
+    monkeypatch.setattr(host_zstd, "SOURCE", str(broken))
+    monkeypatch.setattr(host_zstd, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(host_zstd, "_lib", None)
+    assert host_zstd.library_path() != path
+    with pytest.raises(host_zstd.ZstdBuildError):
+        host_zstd.library()
+    with pytest.raises(host_zstd.ZstdBuildError):
+        of.read_checkpoint(os.path.join(FIXTURE, "tmp", ttrain.ORBAX_STATE_DIR))
+
+
 @pytest.mark.parametrize("size", [0, 1, 255, 65_791, 128 * 1024, 128 * 1024 + 1, 1_000_000])
 def test_zstd_frame_raw_is_read_by_zstandard(size):
     data = _content("random", size)
@@ -417,6 +516,222 @@ def test_a_jax_side_conversion_to_train_state_ckpt_restores_in_equal_bits(tmp_pa
     _, got = fixture_state(dict(FIXTURE_SPEC, seed=7), quantised=False)
     tckpt.load_train_state(path, got)
     _assert_states_equal(got, want)
+
+
+# --------------------------------------------------------------------------- #
+# gradient accumulation: optax.MultiSteps' state                              #
+# --------------------------------------------------------------------------- #
+ACCUM, ACCUM_LR, ACCUM_BATCH, ACCUM_TEXT = 2, 1e-4, 2, 8  # lr: the train CLI's default
+
+
+def _accum_batch(seed):
+    rng = np.random.default_rng(seed)
+    mask = np.ones((ACCUM_BATCH, ACCUM_TEXT), bool)
+    mask[1, 5:] = False
+    side = FIXTURE_SPEC["imagen"]["image_sizes"][-1]
+    return {"image": rng.uniform(size=(ACCUM_BATCH, side, side, 3)).astype(np.float32),
+            "encoding": rng.normal(size=(ACCUM_BATCH, ACCUM_TEXT, 512)).astype(np.float32),
+            "mask": mask}
+
+
+def _accum_draws(ref, key, step):
+    """The JAX train step's draws at `step` (``mesh.py:346-347``,
+    ``imagen.py:1164,1232-1243``), per stage, as torch tensors."""
+    keys = jax.random.split(jax.random.fold_in(key, step), ref.num_unets)
+    draws = []
+    for i, size in enumerate(ref.image_sizes):
+        times_key, aug_key, p_key = jax.random.split(keys[i], 3)
+        noise_key, lowres_key, drop_key = jax.random.split(p_key, 3)
+        shape = (ACCUM_BATCH, size, size, ref.channels)
+        d = {"times": ref.noise_schedulers[i].sample_random_times(times_key, ACCUM_BATCH),
+             "noise": jax.random.normal(noise_key, shape, jnp.float32),
+             "keep_mask": jax.random.uniform(drop_key, (ACCUM_BATCH,)) < 1.0 - ref.cond_drop_prob}
+        if i > 0:
+            aug = ref.lowres_noise_schedule.sample_random_times(aug_key, 1)
+            d["lowres_aug_times"] = jnp.repeat(aug, ACCUM_BATCH)
+            d["lowres_noise"] = jax.random.normal(lowres_key, shape, jnp.float32)
+        draws.append({k: torch.from_numpy(np.array(v)) for k, v in d.items()})
+    return draws
+
+
+class _AccumRun:
+    """The fixture's dim-16 cascade (flax-style init from its seed) trained
+    under ``accum_iter`` 2 (bf16 first moment, the EMA) by both packages
+    from the same weights, batches and draws: each package's train state
+    after 1 and after 2 mini-steps."""
+
+    def __init__(self):
+        from minimagen_tpu.models import unet as J
+        from minimagen_tpu.models.imagen import Imagen as JImagen
+
+        self.imagen = _cascade(FIXTURE_SPEC)
+        self.ref = JImagen(unets=[J.UnetConfig(**{k: tuple(v) if isinstance(v, list) else v
+                                                   for k, v in u.items()})
+                                  for u in FIXTURE_SPEC["unets"]],
+                           **dict(FIXTURE_SPEC["imagen"],
+                                  image_sizes=tuple(FIXTURE_SPEC["imagen"]["image_sizes"])))
+        self.params = {f"unet_{i}": jax.tree_util.tree_map(
+            lambda t: jnp.asarray(t.numpy()), tckpt.flax_unet_tree(u))
+            for i, u in enumerate(self.imagen.unets)}
+        self.key = jax.random.PRNGKey(5)
+        self.jtx = jmesh.make_optimizer(ACCUM_LR, ACCUM, mu_dtype=jnp.bfloat16)
+        self.jstep = jmesh.make_train_step(self.ref, self.jtx, donate=False,
+                                           ema_decay=FIXTURE_SPEC["ema"])
+        jstate = jmesh.create_train_state(self.params, self.jtx, ema=True)
+        tstate = self.port_state()
+        self.tstep = ttrain.make_train_step(self.imagen, self.port_optimizer(),
+                                            ema_decay=FIXTURE_SPEC["ema"])
+        self.jax_states, self.port_states = {}, {}
+        for k in (1, 2):
+            jstate, _ = self.jax_step(jstate)
+            tstate, _ = self.port_step(tstate)
+            self.jax_states[k] = jstate
+            self.port_states[k] = ttrain.create_train_state(
+                _cascade(FIXTURE_SPEC), self.port_optimizer(), ema=True)
+            _copy_state(tstate, self.port_states[k])
+
+    def port_optimizer(self):
+        return ttrain.make_optimizer(ACCUM_LR, ACCUM, torch.bfloat16)
+
+    def port_state(self, seed=None):
+        imagen = self.imagen if seed is None else _cascade(dict(FIXTURE_SPEC, seed=seed))
+        return ttrain.create_train_state(imagen, self.port_optimizer(), ema=True)
+
+    def jax_step(self, jstate):
+        batch = _accum_batch(int(jstate.step))
+        return self.jstep(jstate, {k: jnp.asarray(v) for k, v in batch.items()}, self.key)
+
+    def port_step(self, tstate, imagen=None):
+        step = self.tstep if imagen is None else ttrain.make_train_step(
+            imagen, self.port_optimizer(), ema_decay=FIXTURE_SPEC["ema"])
+        batch = _accum_batch(tstate.step)
+        return step(tstate, {k: torch.from_numpy(v) for k, v in batch.items()},
+                    draws=_accum_draws(self.ref, self.key, tstate.step))
+
+    def template(self):
+        """A JAX TrainState of the same structure and other values."""
+        params = jax.tree_util.tree_map(lambda a: a + 1.0, self.params)
+        return jmesh.create_train_state(params, self.jtx, ema=True)
+
+
+def _copy_state(src, dst):
+    """`src`'s values into `dst` (another state of the same layout)."""
+    with torch.no_grad():
+        for xs, ys in ((src.params, dst.params), (src.opt_state.mu, dst.opt_state.mu),
+                       (src.opt_state.nu, dst.opt_state.nu), (src.ema_params, dst.ema_params),
+                       (src.opt_state.acc_grads, dst.opt_state.acc_grads)):
+            for x, y in zip(xs, ys):
+                y.copy_(x)
+    dst.step = src.step
+    for name in ("count", "mini_step", "gradient_step"):
+        setattr(dst.opt_state, name, getattr(src.opt_state, name))
+
+
+def _port_leaves(state):
+    """Every array of a port TrainState by its Orbax name, as numpy."""
+    return {".".join(keys): (t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+                             if t.dtype == torch.bfloat16 else t.numpy())
+            for keys, _, t in ttrain._orbax_leaves(tckpt.train_state_dict(state))
+            if t is not None}
+
+
+def _assert_leaves_equal(got, want):
+    assert set(got) == set(want)
+    for name, a in want.items():
+        b = got[name]
+        assert b.shape == a.shape and b.dtype.itemsize == a.dtype.itemsize, name
+        np.testing.assert_array_equal(_bits(np.asarray(b)), _bits(np.asarray(a)), err_msg=name)
+
+
+@pytest.fixture(scope="module")
+def accum_run():
+    return _AccumRun()
+
+
+@pytest.mark.parametrize("mini_steps", [1, 2])
+def test_the_port_reads_a_jax_accumulation_state_in_equal_bits(accum_run, tmp_path, mini_steps):
+    """``accum_iter`` 2: the JAX package's Orbax write after one mini-step
+    (``mini_step`` 1, ``acc_grads`` the first gradients) and after two (the
+    update made, ``mini_step`` 0, ``gradient_step`` 1): every leaf read in
+    equal bits, and ``load_train_state_orbax`` puts each field into a port
+    state in equal bits."""
+    jstate = accum_run.jax_states[mini_steps]
+    inner = jstate.opt_state
+    assert int(inner.mini_step) == mini_steps % ACCUM
+    assert int(inner.gradient_step) == mini_steps // ACCUM
+    assert any(np.abs(np.asarray(g)).max() > 0 for g in jax.tree_util.tree_leaves(
+        inner.acc_grads)) == (mini_steps % ACCUM == 1)
+    path = str(tmp_path / "jax")
+    jtrain.save_train_state_orbax(path, jstate)
+    _assert_port_leaves_equal(path, jstate)
+    state = accum_run.port_state(seed=7)
+    ttrain.load_train_state_orbax(path, state)
+    assert (state.step, state.opt_state.count) == (mini_steps, mini_steps // ACCUM)
+    assert (state.opt_state.mini_step, state.opt_state.gradient_step) == (
+        mini_steps % ACCUM, mini_steps // ACCUM)
+    _assert_leaves_equal(_port_leaves(state), _jax_leaves(jstate))
+
+
+@pytest.mark.parametrize("mini_steps", [1, 2])
+def test_the_jax_package_restores_the_ports_accumulation_state_in_equal_bits(
+        accum_run, tmp_path, mini_steps):
+    """The port's own state after the same mini-steps, written by
+    ``save_train_state_orbax``: the JAX package restores every leaf of it
+    in equal bits (``mini_step``, ``gradient_step``, ``acc_grads`` too);
+    and the port's state agrees with the JAX package's as the train steps
+    of ``test_torch_training.py`` do (the same steps in two packages):
+    parameters and EMA within 1e-5 relative L2, the accumulated gradients
+    within 1e-4."""
+    state = accum_run.port_states[mini_steps]
+    path = str(tmp_path / "port")
+    ttrain.save_train_state_orbax(path, state)
+    restored = jtrain.load_train_state_orbax(path, accum_run.template())
+    _assert_leaves_equal(_jax_leaves(restored), _port_leaves(state))
+    want, got = _jax_leaves(accum_run.jax_states[mini_steps]), _port_leaves(state)
+    for group, limit in (("params.", 1e-5), ("ema_params.", 1e-5),
+                         ("opt_state.acc_grads.", 1e-4)):
+        keys = [k for k in want if k.startswith(group)]
+        a = np.concatenate([np.asarray(got[k], np.float64).ravel() for k in keys])
+        b = np.concatenate([np.asarray(want[k], np.float64).ravel() for k in keys])
+        assert np.linalg.norm(a - b) <= limit * max(np.linalg.norm(b), 1e-30), group
+
+
+def _params_rel(got, want, unet):
+    keys = [k for k in want if k.startswith(f"params.unet_{unet}.")]
+    a = np.concatenate([np.asarray(got[k], np.float64).ravel() for k in keys])
+    b = np.concatenate([np.asarray(want[k], np.float64).ravel() for k in keys])
+    return np.linalg.norm(a - b) / np.linalg.norm(b)
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+@pytest.mark.parametrize("mini_steps", [1, 2])
+def test_each_package_resumes_the_others_accumulation_state(accum_run, tmp_path, mini_steps,
+                                                            writer):
+    """One package writes its state after `mini_steps`; the other restores
+    that write and takes one step, and the writer takes the same step from
+    its own state: both stage losses and every U-Net's parameters within
+    1e-6 relative (float32; the two steps start from the same bits, so
+    only the packages' arithmetic differs). After one mini-step this step
+    makes the update from the restored ``acc_grads``; after two it starts a
+    new round."""
+    path = str(tmp_path / writer)
+    imagen = _cascade(dict(FIXTURE_SPEC, seed=7))
+    state = ttrain.create_train_state(imagen, accum_run.port_optimizer(), ema=True)
+    if writer == "jax":
+        jtrain.save_train_state_orbax(path, accum_run.jax_states[mini_steps])
+        ttrain.load_train_state_orbax(path, state)
+        jstate = accum_run.jax_states[mini_steps]
+    else:
+        ttrain.save_train_state_orbax(path, accum_run.port_states[mini_steps])
+        jstate = jtrain.load_train_state_orbax(path, accum_run.template())
+        _copy_state(accum_run.port_states[mini_steps], state)
+    state, tlosses = accum_run.port_step(state, imagen)
+    jstate, jlosses = accum_run.jax_step(jstate)
+    np.testing.assert_allclose(tlosses.numpy(), np.asarray(jlosses), rtol=1e-6)
+    assert state.opt_state.mini_step == int(jstate.opt_state.mini_step) == (mini_steps + 1) % 2
+    got, want = _port_leaves(state), _jax_leaves(jstate)
+    for i in range(len(imagen.unets)):
+        assert _params_rel(got, want, i) <= 1e-6
 
 
 def test_orbax_format_imports_neither_jax_nor_orbax():

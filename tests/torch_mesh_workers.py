@@ -485,6 +485,9 @@ def cli_run(group, spec):
     """The train CLI (``-test``, one epoch) and the inference CLI with
     ``--MESH data``, in ``spec['cwd']``: every process runs both, as under
     torchrun."""
+    # the train CLI's ConceptualCaptions: the offline set at once, not first
+    # a try of the hub where `datasets` is installed (read at its import)
+    os.environ["HF_DATASETS_OFFLINE"] = "1"
     from minimagen_tpu_torch import inference, train  # noqa: PLC0415
 
     os.chdir(spec["cwd"])
