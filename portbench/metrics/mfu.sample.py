@@ -1,0 +1,9 @@
+"""Model FLOPs of the guided U-Net forwards of the calls the window
+completed (reckoned from their shapes, ``portbench/work.py``), over the
+window's time, as a share of the bf16 dense peak of one H100 SXM."""
+from portbench import work
+
+
+def read(r):
+    m = r["measured"]
+    return 100.0 * m["flops_per_s"] / work.PEAK_FLOPS if m.get("flops_per_s") else None
