@@ -36,7 +36,8 @@ What is ported so far:
   forward), alone or with ZeRO-1, in training, sampling, the cascade
   groups, the pipeline and the sharded dumps;
 - the tools: ``Imagen.stage_memory_analysis``, ``utils/profiling.py``
-  (``torch.profiler`` traces and their device time by kernel family) and
+  (``torch.profiler`` traces and their device time by kernel family; the
+  program's spans, recorded while a profiler is active) and
   ``tools/torch_import.py`` (reference MinImagen ``.pth`` U-Nets in and
   out, ``python -m minimagen_tpu_torch.tools.torch_import import|export``);
 - the reference's import paths (``Imagen``, ``Unet``, ``t5``,

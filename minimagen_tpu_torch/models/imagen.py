@@ -58,6 +58,7 @@ from ..ops.helpers import (
     unnormalize_zero_to_one,
 )
 from ..ops.resize import resize_image_to
+from ..utils.profiling import span
 from ..utils.progress import ProgressBar
 from .t5 import MAX_LENGTH, TextEncoder, get_encoded_dim
 from .unet import EncoderCache, UnetConfig, UnetModel, encoder_cache_shapes
@@ -245,11 +246,13 @@ class Imagen:
         dup = lambda a: None if a is None else torch.cat([a, a], dim=0)  # noqa: E731
         keep = torch.cat([torch.ones(b, dtype=torch.bool, device=x.device),
                           torch.zeros(b, dtype=torch.bool, device=x.device)])
-        out = self.unets[stage](dup(x), dup(t), text_embeds=dup(text_embeds),
-                                text_mask=dup(text_mask), lowres_cond_img=dup(lowres_cond_img),
-                                lowres_noise_times=dup(lowres_noise_times), text_keep_mask=keep,
-                                encoder_cache=encoder_cache,
-                                return_encoder_cache=return_encoder_cache)
+        with span(f"unet.{stage}"):
+            out = self.unets[stage](dup(x), dup(t), text_embeds=dup(text_embeds),
+                                    text_mask=dup(text_mask),
+                                    lowres_cond_img=dup(lowres_cond_img),
+                                    lowres_noise_times=dup(lowres_noise_times),
+                                    text_keep_mask=keep, encoder_cache=encoder_cache,
+                                    return_encoder_cache=return_encoder_cache)
         cache = None
         if return_encoder_cache:
             out, cache = out
@@ -283,19 +286,21 @@ class Imagen:
             pred = self._cfg_forward(stage, x, t, cond_scale=cond_scale,
                                      guidance_rescale=guidance_rescale, **kw)
         else:
-            pred = self.unets[stage](x, t, **kw)
+            with span(f"unet.{stage}"):
+                pred = self.unets[stage](x, t, **kw)
         cache = None
         if return_encoder_cache:
             pred, cache = pred
-        x_start = self.noise_schedulers[stage].predict_start_from_noise(x, t=t, noise=pred)
-        b = x_start.shape[0]
-        flat = x_start.reshape(b, -1).abs().float()
-        if flat.shape[-1] >= APPROX_QUANTILE_MIN:
-            s = abs_quantile_bisect(flat, self.dynamic_thresholding_percentile)
-        else:
-            s = torch.quantile(flat, self.dynamic_thresholding_percentile, dim=-1)
-        s = right_pad_dims_to(x_start, s.clamp(min=1.0)).to(x_start.dtype)
-        x_start = torch.maximum(torch.minimum(x_start, s), -s) / s
+        with span("sample.threshold"):
+            x_start = self.noise_schedulers[stage].predict_start_from_noise(x, t=t, noise=pred)
+            b = x_start.shape[0]
+            flat = x_start.reshape(b, -1).abs().float()
+            if flat.shape[-1] >= APPROX_QUANTILE_MIN:
+                s = abs_quantile_bisect(flat, self.dynamic_thresholding_percentile)
+            else:
+                s = torch.quantile(flat, self.dynamic_thresholding_percentile, dim=-1)
+            s = right_pad_dims_to(x_start, s.clamp(min=1.0)).to(x_start.dtype)
+            x_start = torch.maximum(torch.minimum(x_start, s), -s) / s
         return (x_start, cache) if return_encoder_cache else x_start
 
     def _p_mean_variance(self, stage, x, t, **kw):
@@ -381,35 +386,40 @@ class Imagen:
             if sampler == "ddpm":
                 draw = self._noise_fn(noise, generator)
                 for idx, t_scalar in enumerate(times):
-                    x0 = predict(img, t_scalar, idx)
-                    mean, _, log_var = scheduler.q_posterior(x_start=x0, x_t=img, t=full(t_scalar))
-                    step_noise = draw(img.shape)
-                    img = mean + (1.0 if t_scalar > 0 else 0.0) * torch.exp(0.5 * log_var) \
-                        * step_noise
+                    with span("sample.step"):
+                        x0 = predict(img, t_scalar, idx)
+                        mean, _, log_var = scheduler.q_posterior(x_start=x0, x_t=img,
+                                                                 t=full(t_scalar))
+                        step_noise = draw(img.shape)
+                        img = mean + (1.0 if t_scalar > 0 else 0.0) \
+                            * torch.exp(0.5 * log_var) * step_noise
             elif sampler == "ddim":
                 for idx, (t_scalar, tp_scalar) in enumerate(pairs):
-                    x0 = predict(img, t_scalar, idx)
-                    img = scheduler.ddim_step(img, x0, full(t_scalar), full(tp_scalar))
+                    with span("sample.step"):
+                        x0 = predict(img, t_scalar, idx)
+                        img = scheduler.ddim_step(img, x0, full(t_scalar), full(tp_scalar))
             elif sampler == "dpmpp":
                 # float32 coefficients, as the JAX package's scan takes them
                 coefs = scheduler.dpmpp_2m_coefficients(pairs).tolist()
                 x0_prev = torch.zeros_like(img)  # c2 = 0 on step 0
                 for idx, ((t_scalar, _), c) in enumerate(zip(pairs, coefs)):
-                    x0 = predict(img, t_scalar, idx)
-                    d = c[2] * x0 + c[3] * x0_prev
-                    img = c[0] * img + c[1] * d
-                    x0_prev = x0
+                    with span("sample.step"):
+                        x0 = predict(img, t_scalar, idx)
+                        d = c[2] * x0 + c[3] * x0_prev
+                        img = c[0] * img + c[1] * d
+                        x0_prev = x0
             else:  # unipc: correct the transition that landed here, then predict
                 pcoefs = scheduler.dpmpp_2m_coefficients(pairs).tolist()
                 ccoefs = scheduler.unipc_c_coefficients(pairs).tolist()
                 x_s0 = m0 = m1 = torch.zeros_like(img)  # rows 0 and 1 ignore them
                 for idx, ((t_scalar, _), pc, cc) in enumerate(zip(pairs, pcoefs, ccoefs)):
-                    m_t = predict(img, t_scalar, idx)
-                    x_c = (cc[0] * img + cc[1] * x_s0 + cc[2] * m0
-                           + cc[3] * (m1 - m0) + cc[4] * (m_t - m0))
-                    d = pc[2] * m_t + pc[3] * m0
-                    img = pc[0] * x_c + pc[1] * d
-                    x_s0, m1, m0 = x_c, m0, m_t
+                    with span("sample.step"):
+                        m_t = predict(img, t_scalar, idx)
+                        x_c = (cc[0] * img + cc[1] * x_s0 + cc[2] * m0
+                               + cc[3] * (m1 - m0) + cc[4] * (m_t - m0))
+                        d = pc[2] * m_t + pc[3] * m0
+                        img = pc[0] * x_c + pc[1] * d
+                        x_s0, m1, m0 = x_c, m0, m_t
         finally:
             if bar is not None:
                 bar.close()
@@ -559,46 +569,48 @@ class Imagen:
             raise ValueError(f"unknown data_format {data_format!r}")
         if device is not None and torch.device(device).type != self.device.type:
             raise ValueError(f"sample(device={device!r}): the U-Nets are on {self.device}")
-        text_embeds, text_masks = self._text_inputs(texts, text_embeds, text_masks)
-        if cond_scale != 1.0 and not self.can_classifier_guidance:
-            raise ValueError("classifier-free guidance needs a model trained with cond_drop_prob > 0")
-        draw = self._noise_fn(noise, generator)
-        b = text_embeds.shape[0]
-        total = b
-        gathered = lambda params: contextlib.nullcontext()  # noqa: E731
-        if mesh is not None:
-            from ..parallel.mesh import gather_rows, gathered  # noqa: PLC0415
-            from ..parallel.tensor import place_model  # noqa: PLC0415
-            place_model(self.unets, mesh)  # a model axis: wide kernels not yet placed
-            pad = (-b) % mesh.size
-            if pad:
-                text_embeds = torch.cat([text_embeds, text_embeds[-1:].expand(pad, -1, -1)])
-                if text_masks is not None:
-                    text_masks = torch.cat([text_masks, text_masks[-1:].expand(pad, -1)])
-            total = b + pad
-            rows = mesh.rows(total)
-            text_embeds = text_embeds[rows]
-            text_masks = None if text_masks is None else text_masks[rows]
-            draw = rows_of_draws(draw, total, rows)
-        options = dict(cond_scale=cond_scale, sampler=sampler, sample_steps=sample_steps,
-                       grid=grid, cache_interval=cache_interval,
-                       guidance_rescale=guidance_rescale, progress=progress,
-                       lowres_sample_noise_level=lowres_sample_noise_level,
-                       sr_start_noise_levels=sr_start_noise_levels)
-        img, outputs = None, []
-        for stage in range(self.num_unets):
-            with gathered(self.unets[stage].parameters()):  # FSDP: one stage at a time
-                img = self.cascade_stage(stage, img, text_embeds, text_masks, draw=draw,
-                                         total_rows=total, **options)
-            outputs.append(img)
-        if mesh is not None:
-            outputs = [gather_rows(o, mesh, total)[:b] for o in outputs]
-            img = outputs[-1]
-        if return_pil_images:
-            return [_to_pil(im) for im in img.float().cpu().numpy()]
-        if data_format == "NCHW":
-            outputs = [o.permute(0, 3, 1, 2) for o in outputs]
-        return outputs if return_all_stage_outputs else outputs[-1]
+        with span("sample"):
+            text_embeds, text_masks = self._text_inputs(texts, text_embeds, text_masks)
+            if cond_scale != 1.0 and not self.can_classifier_guidance:
+                raise ValueError("classifier-free guidance needs a model trained with "
+                                 "cond_drop_prob > 0")
+            draw = self._noise_fn(noise, generator)
+            b = text_embeds.shape[0]
+            total = b
+            gathered = lambda params: contextlib.nullcontext()  # noqa: E731
+            if mesh is not None:
+                from ..parallel.mesh import gather_rows, gathered  # noqa: PLC0415
+                from ..parallel.tensor import place_model  # noqa: PLC0415
+                place_model(self.unets, mesh)  # a model axis: wide kernels not yet placed
+                pad = (-b) % mesh.size
+                if pad:
+                    text_embeds = torch.cat([text_embeds, text_embeds[-1:].expand(pad, -1, -1)])
+                    if text_masks is not None:
+                        text_masks = torch.cat([text_masks, text_masks[-1:].expand(pad, -1)])
+                total = b + pad
+                rows = mesh.rows(total)
+                text_embeds = text_embeds[rows]
+                text_masks = None if text_masks is None else text_masks[rows]
+                draw = rows_of_draws(draw, total, rows)
+            options = dict(cond_scale=cond_scale, sampler=sampler, sample_steps=sample_steps,
+                           grid=grid, cache_interval=cache_interval,
+                           guidance_rescale=guidance_rescale, progress=progress,
+                           lowres_sample_noise_level=lowres_sample_noise_level,
+                           sr_start_noise_levels=sr_start_noise_levels)
+            img, outputs = None, []
+            for stage in range(self.num_unets):
+                with gathered(self.unets[stage].parameters()):  # FSDP: one stage at a time
+                    img = self.cascade_stage(stage, img, text_embeds, text_masks, draw=draw,
+                                             total_rows=total, **options)
+                outputs.append(img)
+            if mesh is not None:
+                outputs = [gather_rows(o, mesh, total)[:b] for o in outputs]
+                img = outputs[-1]
+            if return_pil_images:
+                return [_to_pil(im) for im in img.float().cpu().numpy()]
+            if data_format == "NCHW":
+                outputs = [o.permute(0, 3, 1, 2) for o in outputs]
+            return outputs if return_all_stage_outputs else outputs[-1]
 
     @torch.inference_mode()
     def cascade_stage(self, stage: int, img, text_embeds, text_masks, *, draw: NoiseFn,
@@ -612,27 +624,28 @@ class Imagen:
         truncated start (super-res stages), its initial image and its reverse
         process, its draws from `draw`. `total_rows` is the whole batch's
         row count, which 'auto' caching decides by."""
-        per_stage = lambda v: v[stage] if isinstance(v, (list, tuple)) else v  # noqa: E731
-        noise_level = default(lowres_sample_noise_level, self.lowres_sample_noise_level)
-        size = self.image_sizes[stage]
-        steps = per_stage(sample_steps)
-        lowres = lowres_times = start_at = None
-        if self.unet_configs[stage].lowres_cond:
-            lowres, lowres_times = self._lowres_condition(stage, img, noise_level, draw)
-            sr_level = per_stage(sr_start_noise_levels)
-            if sr_level is not None:
-                start_at = self._truncation_start(stage, sr_level, sampler, steps, grid)
-        shape = (text_embeds.shape[0], size, size, self.channels)
-        init = (draw(shape) if start_at is None
-                else self._truncation_init(stage, img, start_at, draw(shape)))
-        rows = total_rows * (2 if cond_scale != 1.0 else 1)
-        return self.sample_stage(
-            stage, text_embeds, text_masks, cond_scale, init_noise=init,
-            lowres_cond_img=lowres, lowres_noise_times=lowres_times, sampler=sampler,
-            sample_steps=steps, start_at=start_at, grid=grid,
-            cache_interval=self._resolve_cache_interval(cache_interval, stage, rows,
-                                                        text_embeds.shape[1]),
-            guidance_rescale=guidance_rescale, progress=progress, noise=draw)
+        with span("sample.stage"):
+            per_stage = lambda v: v[stage] if isinstance(v, (list, tuple)) else v  # noqa: E731
+            noise_level = default(lowres_sample_noise_level, self.lowres_sample_noise_level)
+            size = self.image_sizes[stage]
+            steps = per_stage(sample_steps)
+            lowres = lowres_times = start_at = None
+            if self.unet_configs[stage].lowres_cond:
+                lowres, lowres_times = self._lowres_condition(stage, img, noise_level, draw)
+                sr_level = per_stage(sr_start_noise_levels)
+                if sr_level is not None:
+                    start_at = self._truncation_start(stage, sr_level, sampler, steps, grid)
+            shape = (text_embeds.shape[0], size, size, self.channels)
+            init = (draw(shape) if start_at is None
+                    else self._truncation_init(stage, img, start_at, draw(shape)))
+            rows = total_rows * (2 if cond_scale != 1.0 else 1)
+            return self.sample_stage(
+                stage, text_embeds, text_masks, cond_scale, init_noise=init,
+                lowres_cond_img=lowres, lowres_noise_times=lowres_times, sampler=sampler,
+                sample_steps=steps, start_at=start_at, grid=grid,
+                cache_interval=self._resolve_cache_interval(cache_interval, stage, rows,
+                                                            text_embeds.shape[1]),
+                guidance_rescale=guidance_rescale, progress=progress, noise=draw)
 
     @torch.inference_mode()
     def super_resolve(self, images, *, stage: int = 1, texts: Optional[List[str]] = None,
@@ -699,9 +712,11 @@ class Imagen:
             lowres_aug_times = default(lowres_aug_times, times)
             lowres_noisy = self.lowres_noise_schedule.q_sample(
                 x_start=lowres_cond_img, t=lowres_aug_times, noise=lowres_noise)
-        pred = self.unets[stage](x_noisy, times, text_embeds=text_embeds, text_mask=text_mask,
-                                 text_keep_mask=keep_mask, lowres_cond_img=lowres_noisy,
-                                 lowres_noise_times=lowres_aug_times)
+        with span(f"unet.{stage}"):
+            pred = self.unets[stage](x_noisy, times, text_embeds=text_embeds,
+                                     text_mask=text_mask, text_keep_mask=keep_mask,
+                                     lowres_cond_img=lowres_noisy,
+                                     lowres_noise_times=lowres_aug_times)
         if self.min_snr_gamma is None:
             return self.loss_fn(pred, noise)
         abar = scheduler.alphas_cumprod[times]

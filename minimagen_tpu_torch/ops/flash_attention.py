@@ -26,6 +26,7 @@ from typing import Optional
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..utils.profiling import span
 from . import kernels
 
 NEG_INF = -1e30  # large negative for masking pre-softmax logits (f32-safe)
@@ -261,10 +262,12 @@ def _forward(ctx, kind, q, k, v, bias):
 
 def _backward(ctx, g):
     q, k, v, bias, out, lse = ctx.saved_tensors
-    if q.device.type == "cpu":
-        dq, dk, dv = _PLAIN[ctx.kind][1](q, k, v, g, attn_bias=bias)
-    else:
-        dq, dk, dv = attention_backward_kernel(ctx.kind, q, k, v, bias, out, g.contiguous(), lse)
+    with span("attention.backward"):
+        if q.device.type == "cpu":
+            dq, dk, dv = _PLAIN[ctx.kind][1](q, k, v, g, attn_bias=bias)
+        else:
+            dq, dk, dv = attention_backward_kernel(ctx.kind, q, k, v, bias, out,
+                                                   g.contiguous(), lse)
     return dq, dk, dv, None  # the bias is mask-derived: zero cotangent
 
 

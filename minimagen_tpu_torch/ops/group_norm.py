@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
+from ..utils.profiling import span
 from . import kernels
 from .flash_attention import acc_dtype, needs_grad
 
@@ -311,19 +312,20 @@ class GroupNormSiLU(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        x, gamma, beta, scale, shift, mean, rstd = ctx.saved_tensors
-        kw = dict(groups=ctx.groups, silu=ctx.silu)
-        if x.device.type == "cpu":
-            dx, dgamma, dbeta, dscale, dshift = group_norm_silu_bwd_plain(
-                x, gamma, beta, scale, shift, mean, rstd, g, **kw)
-        else:
-            dx, dgamma, dbeta, dscale, dshift = group_norm_backward_kernel(
-                x, gamma, beta, scale, shift, mean, rstd, g.contiguous(), **kw)
-        if scale is not None:
-            dscale = dscale.reshape(scale.shape).to(scale.dtype)
-            dshift = dshift.reshape(shift.shape).to(shift.dtype)
-        return (dx, dgamma.to(ctx.param_dtypes[0]), dbeta.to(ctx.param_dtypes[1]), dscale,
-                dshift, None, None, None)
+        with span("group_norm.backward"):
+            x, gamma, beta, scale, shift, mean, rstd = ctx.saved_tensors
+            kw = dict(groups=ctx.groups, silu=ctx.silu)
+            if x.device.type == "cpu":
+                dx, dgamma, dbeta, dscale, dshift = group_norm_silu_bwd_plain(
+                    x, gamma, beta, scale, shift, mean, rstd, g, **kw)
+            else:
+                dx, dgamma, dbeta, dscale, dshift = group_norm_backward_kernel(
+                    x, gamma, beta, scale, shift, mean, rstd, g.contiguous(), **kw)
+            if scale is not None:
+                dscale = dscale.reshape(scale.shape).to(scale.dtype)
+                dshift = dshift.reshape(shift.shape).to(shift.dtype)
+            return (dx, dgamma.to(ctx.param_dtypes[0]), dbeta.to(ctx.param_dtypes[1]), dscale,
+                    dshift, None, None, None)
 
 
 def group_norm_silu(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,

@@ -47,6 +47,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
+from ..utils.profiling import span
 from . import kernels
 from .flash_attention import needs_grad
 
@@ -261,43 +262,45 @@ class StemConv(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        x, *weights = ctx.saved_tensors
-        n = len(weights)
-        g = g.to(x.dtype).contiguous()
-        dws: List[Optional[torch.Tensor]] = [None] * n
-        if any(ctx.needs_input_grad[2:2 + n]):
-            # weight gradient of the s2d-2 kernel as one matmul, float32 sums
-            K = max(w.shape[-1] for w in weights)
-            K2 = K // 2 + 1
-            patches = _s2d_patches(x, K)
-            g2 = _space_to_depth(g)
-            dw2 = patches.reshape(-1, patches.shape[-1]).t() @ g2.reshape(-1, g2.shape[-1])
-            dw2 = dw2.reshape(K2, K2, -1, g2.shape[-1]).permute(3, 2, 0, 1)
-            # through the transposes of the s2d-2 map and of the merge
-            dw = _space_to_depth_weight_grad(dw2, 2, K)
-            off = 0
-            for i, w in enumerate(weights):
-                k, c, o = w.shape[-1], w.shape[0], (K - w.shape[-1]) // 2
-                dws[i] = dw[off:off + c, :, o:o + k, o:o + k].to(w.dtype)
-                off += c
-        dbs, off = [], 0
-        db_full = g.float().sum(dim=(0, 1, 2))
-        for w, dt in zip(weights, ctx.bias_dtypes):
-            dbs.append(None if dt is None else db_full[off:off + w.shape[0]].to(dt))
-            off += w.shape[0]
-        dx = None
-        if ctx.needs_input_grad[0]:
-            # the reference convolutions' input gradient, summed over scales
-            gc = g.permute(0, 3, 1, 2)
-            shape = x.permute(0, 3, 1, 2).shape
-            dx, off = 0, 0
-            for w in weights:
-                k, cout = w.shape[-1], w.shape[0]
-                dx = dx + torch.nn.grad.conv2d_input(shape, w.to(x.dtype), gc[:, off:off + cout],
-                                                     padding=(k - 1) // 2)
-                off += cout
-            dx = dx.permute(0, 2, 3, 1).to(x.dtype)
-        return (dx, None, *dws, *dbs)
+        with span("stem_conv.backward"):
+            x, *weights = ctx.saved_tensors
+            n = len(weights)
+            g = g.to(x.dtype).contiguous()
+            dws: List[Optional[torch.Tensor]] = [None] * n
+            if any(ctx.needs_input_grad[2:2 + n]):
+                # weight gradient of the s2d-2 kernel as one matmul, float32 sums
+                K = max(w.shape[-1] for w in weights)
+                K2 = K // 2 + 1
+                patches = _s2d_patches(x, K)
+                g2 = _space_to_depth(g)
+                dw2 = patches.reshape(-1, patches.shape[-1]).t() @ g2.reshape(-1, g2.shape[-1])
+                dw2 = dw2.reshape(K2, K2, -1, g2.shape[-1]).permute(3, 2, 0, 1)
+                # through the transposes of the s2d-2 map and of the merge
+                dw = _space_to_depth_weight_grad(dw2, 2, K)
+                off = 0
+                for i, w in enumerate(weights):
+                    k, c, o = w.shape[-1], w.shape[0], (K - w.shape[-1]) // 2
+                    dws[i] = dw[off:off + c, :, o:o + k, o:o + k].to(w.dtype)
+                    off += c
+            dbs, off = [], 0
+            db_full = g.float().sum(dim=(0, 1, 2))
+            for w, dt in zip(weights, ctx.bias_dtypes):
+                dbs.append(None if dt is None else db_full[off:off + w.shape[0]].to(dt))
+                off += w.shape[0]
+            dx = None
+            if ctx.needs_input_grad[0]:
+                # the reference convolutions' input gradient, summed over scales
+                gc = g.permute(0, 3, 1, 2)
+                shape = x.permute(0, 3, 1, 2).shape
+                dx, off = 0, 0
+                for w in weights:
+                    k, cout = w.shape[-1], w.shape[0]
+                    dx = dx + torch.nn.grad.conv2d_input(shape, w.to(x.dtype),
+                                                         gc[:, off:off + cout],
+                                                         padding=(k - 1) // 2)
+                    off += cout
+                dx = dx.permute(0, 2, 3, 1).to(x.dtype)
+            return (dx, None, *dws, *dbs)
 
 
 def cross_embed_conv(x: torch.Tensor, weights: Sequence[torch.Tensor],

@@ -48,6 +48,7 @@ a restart resumes from one.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import hashlib
 import inspect
@@ -77,7 +78,7 @@ from .parallel import collectives
 from .parallel import mesh as pmesh
 from .parallel.checkpoint import latest_dump, load_sharded_state, save_sharded_state
 from .parallel.tensor import place_model
-from .utils.profiling import StepTimer
+from .utils.profiling import StepTimer, span
 from .utils.progress import ProgressBar
 
 NormFn = Callable[[Sequence[torch.Tensor]], torch.Tensor]
@@ -396,6 +397,10 @@ def make_train_step(imagen: Imagen, optimizer: ClippedAdam, ema_decay: float = 0
 
     def step_fn(state: TrainState, batch: Dict[str, torch.Tensor], seed: int = 0,
                 draws: Optional[List[Dict[str, torch.Tensor]]] = None):
+        with span("train.step"):
+            return one_step(state, batch, seed, draws)
+
+    def one_step(state, batch, seed, draws):
         total = batch["image"].shape[0] * (mesh.size if mesh is not None else 1)
         if draws is None:
             gen = torch.Generator(device=imagen.device).manual_seed(fold_in(seed, state.step))
@@ -413,8 +418,10 @@ def make_train_step(imagen: Imagen, optimizer: ClippedAdam, ema_decay: float = 0
                 idx = [k for k, (s, _) in enumerate(state.names) if s == i]
                 params = [state.params[k] for k in idx]
                 with pmesh.gathered(params):
-                    loss = loss_of(i, d)
-                    loss.backward()
+                    with span("train.forward"):
+                        loss = loss_of(i, d)
+                    with span("train.backward"):
+                        loss.backward()
                 grads += pmesh.reduce_gradients(
                     [p.grad for p in params], [shapes[k] for k in idx],
                     pmesh.Plan(tuple(state.plan.axes[k] for k in idx), True), mesh)
@@ -423,26 +430,33 @@ def make_train_step(imagen: Imagen, optimizer: ClippedAdam, ema_decay: float = 0
                 losses.append(loss.detach())
             losses = torch.stack(losses)
         else:
-            losses = [loss_of(i, d) for i, d in zip(stages, draws)]
-            torch.stack(losses).sum().backward()
+            with span("train.forward"):
+                losses = [loss_of(i, d) for i, d in zip(stages, draws)]
+                total_loss = torch.stack(losses).sum()
+            with span("train.backward"):
+                total_loss.backward()
             losses = torch.stack([loss.detach() for loss in losses])
-        norm_fn = None
-        if mesh is None:
-            grads = [torch.zeros_like(p, dtype=torch.float32) if p.grad is None
-                     else p.grad.float() for p in state.params]
-        else:
-            if not state.plan.shard_params:
-                grads = pmesh.reduce_gradients([p.grad for p in state.params],
-                                               [p.shape for p in state.params], state.plan, mesh)
-                for p in state.params:
-                    p.grad = None
-            norm_fn = pmesh.global_norm_fn(state.plan, mesh, optimizer.global_norm)
-            losses = collectives.all_reduce(losses, mesh.group) / mesh.size
-        with applying_update(state):
-            local = state.local_params()
-            optimizer.step(local, state.opt_state, grads=grads, norm_fn=norm_fn)
+        with contextlib.ExitStack() as update:
+            with span("train.optimizer"):
+                norm_fn = None
+                if mesh is None:
+                    grads = [torch.zeros_like(p, dtype=torch.float32) if p.grad is None
+                             else p.grad.float() for p in state.params]
+                else:
+                    if not state.plan.shard_params:
+                        grads = pmesh.reduce_gradients([p.grad for p in state.params],
+                                                       [p.shape for p in state.params],
+                                                       state.plan, mesh)
+                        for p in state.params:
+                            p.grad = None
+                    norm_fn = pmesh.global_norm_fn(state.plan, mesh, optimizer.global_norm)
+                    losses = collectives.all_reduce(losses, mesh.group) / mesh.size
+                # the update's in-place writes, Adam's and the EMA's, inside one block
+                update.enter_context(applying_update(state))
+                local = state.local_params()
+                optimizer.step(local, state.opt_state, grads=grads, norm_fn=norm_fn)
             if state.ema_params is not None:
-                with torch.no_grad():
+                with span("train.ema"), torch.no_grad():
                     torch._foreach_mul_(state.ema_params, decay)
                     torch._foreach_add_(state.ema_params, [t.float() for t in local],
                                         alpha=one_minus)

@@ -1,10 +1,15 @@
 """Tracing and step timing (counterpart of ``minimagen_tpu/utils/profiling.py``).
 
+- :func:`span`: a named span of the program's host work (a sampling call,
+  a stage, a step, a U-Net call, the backward pass, the optimizer),
+  recorded in memory while a ``torch.profiler`` session is active and
+  nothing otherwise; :func:`drain_spans` takes the records;
 - :func:`trace`: a ``torch.profiler`` trace of the CPU and, where there is
   one, the card, written as a Chrome trace (``trace_<n>.json``, by
   :func:`save_trace`) into a directory (the JAX package writes an XPlane
-  trace); :func:`find_trace`
-  finds the newest, :func:`summarize_trace` reads its device kernels;
+  trace), with the spans recorded meanwhile on the trace's clock;
+  :func:`find_trace` finds the newest, :func:`summarize_trace` reads its
+  device kernels;
 - :func:`op_category`: a kernel's family by its name: the port's attention
   kernels by kind and its GroupNorm and depth-to-space kernels (the tags of
   ``ab_times.py``, which times two checkouts with its own copy), then
@@ -13,7 +18,6 @@
   a profile and the device ms per call of each family among them;
 - :func:`traced_device_seconds`: the device busy seconds of a call, None
   where no device kernel ran (the CPU);
-- :func:`annotate`: a named range (``record_function``) in the trace;
 - :class:`StepTimer`: wall-clock step times.
 
 The card runs asynchronously, so a step's host time says nothing until the
@@ -27,9 +31,11 @@ import glob
 import json
 import os
 import tempfile
+import threading
 import time
 from collections import defaultdict
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
+from dataclasses import dataclass
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
@@ -67,10 +73,151 @@ def op_category(name: str) -> str:
     return "other"
 
 
+# --------------------------------------------------------------------------- #
+# spans of the program's host work                                            #
+# --------------------------------------------------------------------------- #
+@dataclass
+class SpanRecord:
+    """One recorded span: its name, start and end on ``time.perf_counter_ns``'s
+    clock (`end_ns` None while it is open), the index of its parent among
+    the records drained with it (None for the first span of its thread),
+    the OS thread it ran on, and the index of the root span (the sampling
+    call or train step) open when it started."""
+
+    name: str
+    start_ns: int
+    end_ns: Optional[int]
+    parent: Optional[int]
+    thread: int
+    root: Optional[int]
+
+
+class _Span:
+    """A span while it is recorded (the context manager :func:`span` gives
+    while a profiler is active); its parent and root are spans too, turned
+    into indices when drained."""
+
+    __slots__ = ("name", "start_ns", "end_ns", "parent", "thread", "root")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        _SPANS.open(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        _SPANS.close(self)
+
+
+class _SpanBuffer:
+    """The spans recorded since the last drain. Each thread nests its spans
+    on its own stack; the autograd engine runs backward functions on threads
+    of its own, so a span opened on a thread with none open belongs to the
+    root span open on another thread, or is a root itself."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.records: List[_Span] = []
+        self.local = threading.local()
+        self.root: Optional[_Span] = None
+
+    def open(self, span: _Span) -> None:
+        local = self.local
+        try:
+            stack = local.stack
+        except AttributeError:
+            stack = local.stack = []
+            local.thread = threading.get_native_id()
+        parent = stack[-1] if stack else None
+        span.parent, span.thread, span.end_ns = parent, local.thread, None
+        span.root = parent.root if parent is not None else (self.root or span)
+        if span.root is span:
+            self.root = span
+        stack.append(span)
+        with self.lock:
+            self.records.append(span)
+        span.start_ns = time.perf_counter_ns()
+
+    def close(self, span: _Span) -> None:
+        span.end_ns = time.perf_counter_ns()
+        self.local.stack.pop()
+        if self.root is span:
+            self.root = None
+
+    def drain(self) -> List[SpanRecord]:
+        with self.lock:
+            records, self.records = self.records, []
+        index = {id(r): i for i, r in enumerate(records)}
+        at = lambda r: None if r is None else index.get(id(r))  # noqa: E731
+        return [SpanRecord(r.name, r.start_ns, r.end_ns, at(r.parent), r.thread, at(r.root))
+                for r in records]
+
+
+_SPANS = _SpanBuffer()
+_OFF = nullcontext()
+
+
+def span(name: str):
+    """A named span of the program's host work, as a context manager. It is
+    recorded (name, host start and end, parent, thread, root) while a
+    ``torch.profiler`` session is active on the calling thread, which the
+    autograd engine's threads inherit; otherwise it is one shared null
+    context and costs the check alone."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return _Span(name)
+
+
+def drain_spans() -> List[SpanRecord]:
+    """The spans recorded since the last drain, in the order they opened;
+    the buffer is emptied. Drain when no span is open."""
+    return _SPANS.drain()
+
+
+_ANCHORS = ("mmt.clock.start", "mmt.clock.end")
+
+
+def _clock_anchor(name: str) -> float:
+    """The host clock (ns) at the middle of a ``record_function`` range `name`."""
+    from torch.profiler import record_function  # noqa: PLC0415
+
+    t0 = time.perf_counter_ns()
+    with record_function(name):
+        pass
+    return (t0 + time.perf_counter_ns()) / 2.0
+
+
+def _write_spans(path: str, spans: Sequence[SpanRecord], anchors_ns: Tuple[float, float]) -> None:
+    """Add the closed `spans` that start after the first anchor to the Chrome
+    trace at `path`, as complete events of category ``span`` on the trace's
+    clock: the two :data:`_ANCHORS` ranges in the trace, stamped at
+    `anchors_ns` on the host clock, give the map."""
+    with open(path) as f:
+        data = json.load(f)
+    events = data["traceEvents"]
+    marks = sorted(e["ts"] + e.get("dur", 0) / 2.0 for e in events
+                   if e.get("ph") == "X" and e.get("name") in _ANCHORS)
+    if len(marks) != 2:
+        raise RuntimeError(f"{path} holds {len(marks)} clock anchors, not 2")
+    scale = (marks[1] - marks[0]) / (anchors_ns[1] - anchors_ns[0])
+    pid = os.getpid()
+    for i, s in enumerate(spans):
+        if s.end_ns is None or s.start_ns < anchors_ns[0]:
+            continue
+        events.append({"ph": "X", "cat": "span", "name": s.name, "pid": pid, "tid": s.thread,
+                       "ts": marks[0] + (s.start_ns - anchors_ns[0]) * scale,
+                       "dur": (s.end_ns - s.start_ns) * scale,
+                       "args": {"index": i, "parent": s.parent, "root": s.root}})
+    with open(path, "w") as f:
+        json.dump(data, f)
+
+
 @contextmanager
 def trace(logdir: str) -> Iterator["torch.profiler.profile"]:
     """Profile the block (the CPU, and the card where there is one) and
-    write a Chrome trace into `logdir` (made if missing); yields the
+    write a Chrome trace into `logdir` (made if missing), with the spans
+    (:func:`span`) recorded meanwhile over the operations; yields the
     profile."""
     from torch.profiler import ProfilerActivity, profile  # noqa: PLC0415
 
@@ -80,13 +227,15 @@ def trace(logdir: str) -> Iterator["torch.profiler.profile"]:
         activities.append(ProfilerActivity.CUDA)
     prof = profile(activities=activities)
     prof.start()
+    first = _clock_anchor(_ANCHORS[0])
     try:
         yield prof
     finally:
         if cuda and torch.cuda.is_initialized():
             torch.cuda.synchronize()
+        last = _clock_anchor(_ANCHORS[1])
         prof.stop()
-        save_trace(prof, logdir)
+        _write_spans(save_trace(prof, logdir), drain_spans(), (first, last))
 
 
 def save_trace(prof, logdir: str) -> str:
@@ -160,13 +309,6 @@ def family_ms(items: Sequence[Tuple[str, float]], calls: int) -> Dict[str, float
     for name, us in items:
         out[op_category(name)] += us / 1e3 / calls
     return out
-
-
-def annotate(name: str):
-    """A named range in profiler traces (``torch.profiler.record_function``)."""
-    from torch.profiler import record_function  # noqa: PLC0415
-
-    return record_function(name)
 
 
 class StepTimer:

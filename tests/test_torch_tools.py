@@ -13,7 +13,7 @@
   stages of a cascade equal the JAX package's (the same dtypes and shapes;
   no temporary bytes off the card);
 - ``utils/profiling``: a trace written and read back, no device time on the
-  CPU, the annotation in the trace, the kernel families;
+  CPU, the span in the trace, the kernel families;
 - the import-path shims: each exports the JAX shim's names, and the names
   the port added behave as the JAX package's do."""
 import json
@@ -166,7 +166,7 @@ def test_stage_memory_analysis_counts_the_jax_packages_bytes():
 def test_profiling_on_the_cpu(tmp_path):
     logdir = str(tmp_path / "trace")
     with profiling.trace(logdir):
-        with profiling.annotate("marked range"):
+        with profiling.span("marked range"):
             torch.ones(64).mul(2).sum()
     path = profiling.find_trace(logdir)
     events = json.load(open(path))["traceEvents"]
